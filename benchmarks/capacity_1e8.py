@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """BASELINE capacity target: 1e8-ray 3D trench flux with checkpointing.
 
-Single-chip here; the same script scales to a pod by swapping the tracer
+One device here; the same script scales to several by swapping the tracer
 loop for parallel.mesh.trace_sharded (rays axis) — see examples/sharded_trace.
+The checkpoint goes to chiprun_out/ in the checkout.
 """
 import os, sys, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -12,6 +13,9 @@ from viennaray_tpu.io import fixtures
 from viennaray_tpu.utils.checkpoint import save_checkpoint
 
 TOTAL = int(os.environ.get("CAP_RAYS", 100_000_000))
+CKPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "chiprun_out", "capacity_ckpt.npz")
+os.makedirs(os.path.dirname(CKPT), exist_ok=True)
 CHUNK = 10_000_000
 
 pts, nrm = fixtures.create_trench_grid_3d(grid_delta=0.25)
@@ -27,7 +31,7 @@ done = 0
 while done < TOTAL:
     t.apply()  # accumulates into local data with per-run seed bump
     done += CHUNK
-    save_checkpoint("/tmp/capacity_ckpt.npz", t, {"rays_done": done})
+    save_checkpoint(CKPT, t, {"rays_done": done})
     el = time.perf_counter() - t0
     print(f"{done:.2e} rays, {el:.1f}s, {done/el:.3e} rays/s", flush=True)
 

@@ -3,12 +3,12 @@
 
 Runs the EXACT bench configuration (3D disk trench, grid_delta 0.25,
 DiffuseParticle sticking=0.1, periodic boundaries, 2000 rays/point, seed 42
-— mirroring /root/reference/examples/disk3D/disk3D.cpp:33-52) on the CPU
-backend, where the trace takes the UNFUSED XLA path — an independent code
-path and RNG schedule from the fused Pallas megakernel that bench.py times
-on TPU. bench.py compares its normalized flux against this file with a
-Monte-Carlo-sized rel-L2 tolerance, so the driver BENCH certifies physics,
-not just speed (VERDICT r3 item 2).
+— mirroring the reference's examples/disk3D/disk3D.cpp:33-52) on the CPU
+backend, where the trace takes the XLA brute-force path with a different
+batch size (so a different RNG stream assignment) from the GPU run that
+bench.py times. bench.py and chip_smoke.py compare their normalized flux
+against this file with a Monte-Carlo-sized rel-L2 tolerance, so the
+benchmark certifies physics, not just speed.
 
 Run: python benchmarks/make_bench_golden.py   (CPU, ~10-20 min on 2 vCPU)
 """
@@ -43,11 +43,11 @@ def build_tracer():
     t.set_particle_type(vrt.DiffuseParticle(0.1, "flux"))
     t.set_number_of_rays_per_point(2000)
     t.set_rng_seed(42)
-    # CPU golden generation runs the UNFUSED brute-force path whose
-    # intersection intermediates scale with batch x prims (the default 2^20
-    # batch allocates ~151 GB against this box's 125 GB); physics is
-    # batch-size independent up to RNG stream assignment, which is exactly
-    # what makes this an independent schedule from the TPU bench
+    # CPU golden generation runs the brute-force path whose intersection
+    # intermediates scale with batch x prims (the default 2^20 batch
+    # allocates ~151 GB); physics is batch-size independent up to RNG
+    # stream assignment, which is exactly what makes this an independent
+    # schedule from the GPU run
     t.set_ray_batch_size(1 << 18)
     return t, len(pts)
 
@@ -65,7 +65,7 @@ def main():
         "config": "bench.py flagship (3D disk trench, gd=0.25, sticking 0.1, "
         "2000 rays/pt, seed 42)",
         "backend": jax.default_backend(),
-        "path": "unfused XLA (CPU)",
+        "path": "XLA brute force (CPU)",
         "num_points": n_pts,
         "num_rays": info.num_rays,
         "geometry_hits": info.geometry_hits,

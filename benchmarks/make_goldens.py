@@ -1,13 +1,21 @@
 #!/usr/bin/env python
-"""Generate cross-round golden flux files for the BASELINE.json configs.
+"""Generate the golden flux files.
 
 The Embree reference cannot be built here (no network for its CPM
 dependencies — BASELINE.md), so these goldens freeze OUR validated flux
 fields (which pass the analytic view-factor and uniform-flux contracts) as
-regression anchors: any future kernel change that shifts physics beyond
-Monte Carlo noise trips tests/test_goldens.py.
+regression anchors:
 
-Run on CPU for environment-independence: python benchmarks/make_goldens.py
+- trace2d / disk2d_trench / disk3d_trench (the BASELINE.json configs, small
+  ray counts): any kernel change that shifts physics beyond Monte Carlo
+  noise trips tests/test_goldens.py, which also checks them bitwise on the
+  generating CPU type;
+- tri3d / line2d / ion (the perf_sweep.py configurations at fewer rays per
+  point): chip_smoke.py compares the GPU run at the sweep size against
+  them. Each is the mean of two runs with different seeds; ``noise`` in the
+  manifest is the rel-L2 distance between those two runs.
+
+Run on CPU: python benchmarks/make_goldens.py [--only NAME ...]
 """
 
 import json
@@ -23,10 +31,13 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np
 
 import viennaray_tpu as vrt
-from viennaray_tpu.io import dat, fixtures
+from viennaray_tpu.io import fixtures
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
-REF2D = "/root/reference/examples/disk2D/trenchGrid2D.dat"
+
+# perf_sweep configurations with a CPU golden: name -> rays per point
+SWEEP_GOLDENS = {"tri3d": 100, "line2d": 200, "ion": 200}
+SWEEP_BATCH = 1 << 16
 
 
 def config_trace2d():
@@ -47,11 +58,8 @@ def config_trace2d():
 
 def config_disk2d_trench():
     """BASELINE config 2: 2D trench, sticking 0.1, multi-bounce."""
-    if os.path.exists(REF2D):
-        gd, pts, nrm = dat.read_grid_from_file(REF2D)
-    else:
-        pts, nrm = fixtures.create_trench_grid_2d(grid_delta=0.1)
-        gd = 0.1
+    gd = 0.1
+    pts, nrm = fixtures.create_trench_grid_2d(grid_delta=gd)
     t = vrt.TraceDisk(dim=2)
     t.set_geometry(pts, nrm, gd)
     t.set_boundary_conditions([vrt.BoundaryCondition.PERIODIC] * 2)
@@ -92,13 +100,39 @@ def _cpu_fingerprint():
     return "generic"
 
 
-def main(out_dir=None, quick=False):
+def sweep_golden(name, seeds=(42, 7)):
+    """(mean normalized flux, noise, meta) of a perf_sweep configuration at
+    SWEEP_GOLDENS[name] rays per point, from two seeds."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import perf_sweep
+
+    norms = []
+    for seed in seeds:
+        t = perf_sweep.make(name, SWEEP_GOLDENS[name], seed=seed)
+        t.set_ray_batch_size(SWEEP_BATCH)
+        norms.append(np.asarray(t.normalize_flux(t.apply()), np.float64))
+    a, b = norms
+    noise = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    mean = 0.5 * (a + b)
+    info = t.get_ray_trace_info()
+    return mean, {
+        "num_rays": info.num_rays, "runs": len(seeds), "noise": noise,
+        "mean": float(mean.mean()), "max": float(mean.max()),
+    }
+
+
+def main(out_dir=None, quick=False, only=None):
     out = out_dir or OUT
     os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "manifest.json")
+    old = {}
+    if only and os.path.exists(path):
+        with open(path) as f:
+            old = json.load(f)
     # Golden trajectories depend on compaction order (RNG consumption is
     # per-slot, not per-ray), so the defaults that shape the ladder are
     # recorded here: a default flip that silently invalidates the goldens
-    # becomes detectable instead of inferred (ADVICE r3).
+    # becomes detectable instead of inferred.
     manifest = {
         "_cpu_fingerprint": _cpu_fingerprint(),
         "_defaults": {
@@ -116,9 +150,12 @@ def main(out_dir=None, quick=False):
         ("disk2d_trench", config_disk2d_trench),
         ("disk3d_trench", config_disk3d_trench),
     ]:
+        if only and name not in only:
+            manifest[name] = old[name]
+            continue
         t = make()
         if quick:
-            # CI in-job mode (VERDICT r4 item 3): 8x fewer rays so the
+            # CI in-job mode: 8x fewer rays so the
             # generate-then-reproduce bitwise leg fits a CI budget; the
             # recorded num_rays drives the verifying trace via the manifest
             t.set_number_of_rays_fixed(t._num_rays_fixed // 8)
@@ -135,7 +172,15 @@ def main(out_dir=None, quick=False):
             "max": float(np.max(norm)),
         }
         print(name, manifest[name], flush=True)
-    with open(os.path.join(out, "manifest.json"), "w") as f:
+    for name in SWEEP_GOLDENS:
+        if quick or (only and name not in only):
+            if name in old:
+                manifest[name] = old[name]
+            continue
+        norm, manifest[name] = sweep_golden(name)
+        np.save(os.path.join(out, f"{name}.npy"), norm.astype(np.float32))
+        print(name, manifest[name], flush=True)
+    with open(path, "w") as f:
         json.dump(manifest, f, indent=2)
 
 
@@ -146,7 +191,10 @@ if __name__ == "__main__":
     ap.add_argument("--out", default=None, help="output dir (default in-repo)")
     ap.add_argument(
         "--quick", action="store_true",
-        help="8x fewer rays (CI in-job generate-then-reproduce leg)",
+        help="8x fewer rays, no sweep goldens (CI generate-then-reproduce "
+        "leg)",
     )
+    ap.add_argument("--only", nargs="*", default=None,
+                    help="regenerate only these goldens")
     a = ap.parse_args()
-    main(out_dir=a.out, quick=a.quick)
+    main(out_dir=a.out, quick=a.quick, only=a.only)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Oracle-certify the flagship bench config (VERDICT r4 item 4).
+"""Oracle-certify the flagship bench config.
 
 Runs the independent scalar C++ oracle (tests/oracle_ref.cpp — a
 from-scratch implementation of the reference trace semantics,
@@ -7,14 +7,15 @@ rayTraceKernel.hpp:118-341, sharing no code with viennaray_tpu) on the EXACT
 bench.py geometry and physics (3D disk trench, grid_delta 0.25, ~3k disks,
 DiffuseParticle sticking=0.1, periodic boundaries, 2000 rays/point), then
 normalizes its flux with the tracer's own normalization contract and saves
-it as a SECOND bench golden. bench.py compares the TPU flux against both:
+it as a SECOND bench golden. bench.py and chip_smoke.py compare the GPU flux
+against both:
 
-- bench_disk3d.npy         — this repo's unfused CPU path (independent RNG
+- bench_disk3d.npy         — this repo's CPU path (independent RNG
                              schedule, same codebase)
 - bench_disk3d_oracle.npy  — the C++ oracle (independent codebase AND RNG)
 
-so a shared semantics misreading between the repo's fused and unfused paths
-can no longer pass silently.
+so a semantics misreading shared by the repo's own paths cannot pass
+silently.
 
 Run: python benchmarks/make_oracle_bench_golden.py   (~10-45 min, 1 core)
 """

@@ -1,24 +1,22 @@
 #!/usr/bin/env python
 """Device-scaling harness: rays/s across a 1..N-device ray mesh.
 
-Feeds the BASELINE ">90% linear at 2 hosts" row. On this machine only a
-virtual CPU mesh is available (``xla_force_host_platform_device_count``), so
-the recorded table validates the MECHANICS — shard_map trace + psum flux,
-per-shard RNG, bitwise-identical flux across device counts — and measures
-collective overhead, not real ICI scaling. On a v5e pod the same script runs
-unchanged with JAX_PLATFORMS unset (real chips) and, multi-host, after
-``viennaray_tpu.parallel.initialize_distributed()``.
+Each device count runs in its own child process; the parent stays off JAX
+(so no process but the child holds a card). On a GPU host child n sees the
+first n cards (CUDA_VISIBLE_DEVICES); with ``--cpu`` the children use a
+virtual CPU mesh (``xla_force_host_platform_device_count``), which checks
+the MECHANICS — shard_map trace + psum flux, per-shard RNG, flux agreement
+across device counts — not device scaling.
 
-Each device count runs in its own subprocess (the device-count flag must be
-set before jax imports). Prints one JSON line per N and writes
-benchmarks/scaling.json.
+    python benchmarks/scaling.py [--cpu] [N ...]   (default 1 2 4)
+
+Prints one JSON line per N and a summary line.
 """
 
 import json
 import os
 import subprocess
 import sys
-import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -29,6 +27,7 @@ import numpy as np
 import jax
 if os.environ.get("VRT_SCALING_CPU") == "1":
     jax.config.update("jax_platforms", "cpu")
+dev = jax.devices()[0]
 sys.path.insert(0, %(repo)r)
 import jax.numpy as jnp
 import viennaray_tpu as vrt
@@ -66,31 +65,34 @@ args = (geometry, source, particle, jnp.asarray(bbox, jnp.float32),
 flux, totals = trace_sharded(*args)  # warm / compile
 t0 = time.perf_counter()
 flux, totals = trace_sharded(*args)
-host = np.asarray(flux)  # forced fetch = sync
+host = np.asarray(flux)
 dt = time.perf_counter() - t0
 print(json.dumps({
     "devices": n_dev,
-    "rays_per_s": round(total_rays / dt, 1),
-    "seconds": round(dt, 3),
+    "rays_per_s": total_rays / dt,
+    "seconds": dt,
     "total_rays": total_rays,
     "flux_checksum": float(host.sum()),
+    "device": {"platform": dev.platform, "kind": dev.device_kind},
 }))
 """
 
 
 def main():
-    counts = [int(x) for x in (sys.argv[1:] or ["1", "2", "4", "8"])]
+    args = sys.argv[1:]
+    cpu = "--cpu" in args
+    counts = [int(x) for x in args if x != "--cpu"] or [1, 2, 4]
     rows = []
     for n in counts:
         env = dict(os.environ)
-        env["XLA_FLAGS"] = (
-            env.get("XLA_FLAGS", "")
-            + f" --xla_force_host_platform_device_count={n}"
-        ).strip()
-        env["VRT_SCALING_CPU"] = "1"
-        # CPU workers skip the shared persistent cache (corruption risk
-        # under concurrent writers; see tests/conftest.py)
-        env["VIENNARAY_TPU_NO_CACHE"] = "1"
+        if cpu:
+            env["XLA_FLAGS"] = (
+                env.get("XLA_FLAGS", "")
+                + f" --xla_force_host_platform_device_count={n}"
+            ).strip()
+            env["VRT_SCALING_CPU"] = "1"
+        else:
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(str(i) for i in range(n))
         env.setdefault("VRT_SCALING_RAYS", "262144")
         out = subprocess.run(
             [sys.executable, "-c", WORKER % {"repo": REPO}],
@@ -106,25 +108,16 @@ def main():
     if rows:
         base = rows[0]
         for r in rows:
-            r["efficiency_vs_1dev"] = round(
-                r["rays_per_s"] / (base["rays_per_s"] * r["devices"]), 3
+            r["efficiency_vs_1dev"] = (
+                r["rays_per_s"] / (base["rays_per_s"] * r["devices"])
             )
         checks = [r["flux_checksum"] for r in rows]
         spread = (max(checks) - min(checks)) / max(abs(max(checks)), 1e-9)
         # cross-device-count flux agreement is up to f32 psum reduction
         # order (see parallel/mesh.py RNG contract); bitwise holds per count
         consistent = spread < 1e-5
-        result = {
-            "rows": rows,
-            "flux_rel_spread_across_device_counts": spread,
-            "flux_consistent_across_device_counts": consistent,
-            "recorded": time.strftime("%Y-%m-%d %H:%M:%S"),
-            "note": "virtual CPU mesh — validates mechanics + determinism, "
-                    "not ICI bandwidth",
-        }
-        with open(os.path.join(HERE, "scaling.json"), "w") as f:
-            json.dump(result, f, indent=2)
         print(json.dumps({
+            "efficiency_vs_1dev": [r["efficiency_vs_1dev"] for r in rows],
             "flux_consistent_across_device_counts": consistent,
             "flux_rel_spread": spread,
         }))

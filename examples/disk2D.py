@@ -1,7 +1,7 @@
 """2D trench flux example (port of examples/disk2D/disk2D.cpp).
 
-Reads the reference's checked-in trench grid when available, else generates an
-equivalent trench fixture; traces 2000 rays/point with a diffuse particle
+Traces the in-repo 2D trench fixture, or a reference-format grid file given
+as the first argument; traces 2000 rays/point with a diffuse particle
 (sticking 0.1) under periodic boundaries; writes trenchResult2D.vtk.
 """
 
@@ -16,12 +16,9 @@ import time
 import viennaray_tpu as vrt
 from viennaray_tpu.io import dat, fixtures, vtk
 
-REF = "/root/reference/examples/disk2D/trenchGrid2D.dat"
-
-
-def main():
-    if os.path.exists(REF):
-        grid_delta, points, normals = dat.read_grid_from_file(REF)
+def main(path=None):
+    if path:
+        grid_delta, points, normals = dat.read_grid_from_file(path)
     else:
         points, normals = fixtures.create_trench_grid_2d(grid_delta=0.1)
         grid_delta = 0.1
@@ -47,4 +44,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1] if len(sys.argv) > 1 else None)

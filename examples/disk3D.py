@@ -1,21 +1,19 @@
-"""3D trench flux example (port of examples/disk3D/disk3D.cpp)."""
+"""3D trench flux example (port of examples/disk3D/disk3D.cpp): the in-repo
+3D trench fixture, or a reference-format grid file given as the first
+argument."""
 
 import sys
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-import os
 import time
 
 import viennaray_tpu as vrt
 from viennaray_tpu.io import dat, fixtures, vtk
 
-REF = "/root/reference/examples/disk3D/trenchGrid3D.dat"
-
-
-def main():
-    if os.path.exists(REF):
-        grid_delta, points, normals = dat.read_grid_from_file(REF)
+def main(path=None):
+    if path:
+        grid_delta, points, normals = dat.read_grid_from_file(path)
     else:
         points, normals = fixtures.create_trench_grid_3d(grid_delta=0.25)
         grid_delta = 0.25
@@ -38,4 +36,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1] if len(sys.argv) > 1 else None)

@@ -1,7 +1,8 @@
 """2D native line-segment flux example (port of
 gpu/examples/trenchLines.cpp): segments are traced as first-class primitives
-(no triangle extrusion), with per-material sticking, through the fused line
-megakernel (ops/pallas_bounce.py geo_kind='line')."""
+(no triangle extrusion), with per-material sticking. Traces the in-repo 2D
+trench polyline, or a reference-format line mesh given as the first
+argument."""
 
 import os
 import sys
@@ -13,15 +14,14 @@ import time
 import numpy as np
 
 import viennaray_tpu as vrt
-from viennaray_tpu.io import dat, vtk
+from viennaray_tpu.io import dat, fixtures, vtk
 
-REF = "/root/reference/examples/triangle2D/lineMesh.dat"
-
-
-def main():
-    if not os.path.exists(REF):
-        raise SystemExit("reference mesh fixture not found")
-    grid_delta, nodes, elements = dat.read_mesh_from_file(REF, 2)
+def main(path=None):
+    if path:
+        grid_delta, nodes, elements = dat.read_mesh_from_file(path, 2)
+    else:
+        grid_delta = 0.02
+        nodes, elements = fixtures.create_trench_lines_2d(grid_delta)
 
     mesh = vrt.LineMesh(nodes=nodes, lines=elements, grid_delta=grid_delta)
 
@@ -57,4 +57,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1] if len(sys.argv) > 1 else None)

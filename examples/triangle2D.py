@@ -1,5 +1,7 @@
 """2D line-mesh flux example (port of examples/triangle2D/triangle2D.cpp):
-2D lines are extruded to triangles internally (rayTraceTriangle.hpp:76-81)."""
+2D lines are extruded to triangles internally (rayTraceTriangle.hpp:76-81).
+Traces the in-repo 2D trench polyline, or a reference-format line mesh given
+as the first argument."""
 
 import os
 import sys
@@ -10,16 +12,15 @@ import os
 import time
 
 import viennaray_tpu as vrt
-from viennaray_tpu.io import dat, vtk
-
-REF = "/root/reference/examples/triangle2D/lineMesh.dat"
+from viennaray_tpu.io import dat, fixtures, vtk
 
 
-def main():
-    if os.path.exists(REF):
-        grid_delta, nodes, elements = dat.read_mesh_from_file(REF, 2)
+def main(path=None):
+    if path:
+        grid_delta, nodes, elements = dat.read_mesh_from_file(path, 2)
     else:
-        raise SystemExit("reference mesh fixture not found")
+        grid_delta = 0.1
+        nodes, elements = fixtures.create_trench_lines_2d(grid_delta)
 
     mesh = vrt.LineMesh(nodes=nodes, lines=elements, grid_delta=grid_delta)
     tracer = vrt.TraceTriangle(dim=2)
@@ -43,4 +44,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1] if len(sys.argv) > 1 else None)

@@ -1,23 +1,23 @@
-"""3D triangle-mesh flux example (port of examples/triangle3D/triangle3D.cpp)."""
+"""3D triangle-mesh flux example (port of examples/triangle3D/triangle3D.cpp):
+the in-repo 3D trench mesh, or a reference-format mesh given as the first
+argument."""
 
 import sys
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-import os
 import time
 
 import viennaray_tpu as vrt
-from viennaray_tpu.io import dat, vtk
-
-REF = "/root/reference/examples/triangle3D/trenchMesh.dat"
+from viennaray_tpu.io import dat, fixtures, vtk
 
 
-def main():
-    if os.path.exists(REF):
-        grid_delta, nodes, elements = dat.read_mesh_from_file(REF, 3)
+def main(path=None):
+    if path:
+        grid_delta, nodes, elements = dat.read_mesh_from_file(path, 3)
     else:
-        raise SystemExit("reference mesh fixture not found")
+        grid_delta = 0.2
+        nodes, elements = fixtures.create_trench_mesh_3d(grid_delta)
 
     mesh = vrt.TriangleMesh(nodes=nodes, triangles=elements,
                             grid_delta=grid_delta)
@@ -39,4 +39,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1] if len(sys.argv) > 1 else None)

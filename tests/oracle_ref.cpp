@@ -9,7 +9,7 @@
 // viennaray_tpu — different language, per-ray control flow like the
 // reference (not a wavefront), its own RNG, its own brute-force nearest-hit.
 // Parity tests compare its flux statistically against the JAX tracer so a
-// shared misreading of the semantics in the wavefront + megakernel paths
+// shared misreading of the semantics in the wavefront + kernel paths
 // becomes visible.
 //
 // Built on demand by tests/oracle_ref.py with g++; no dependencies.

@@ -27,7 +27,10 @@ def _load():
     _TRIED = True
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "oracle_ref.cpp")
-    cache = os.path.expanduser("~/.cache/viennaray_tpu_native")
+    cache = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".build", "native",
+    )
     os.makedirs(cache, exist_ok=True)
     so = os.path.join(cache, "oracle_ref.so")
     try:

@@ -67,13 +67,20 @@ def test_dat_mesh_reader(tmp_path):
     np.testing.assert_array_equal(elems, [[0, 1, 2]])
 
 
-def test_reference_dat_fixtures_readable():
-    """The reference's checked-in example fixtures parse cleanly."""
-    ref = "/root/reference/examples/disk2D/trenchGrid2D.dat"
-    if not os.path.exists(ref):
-        return
-    gd, pts, nrm = dat.read_grid_from_file(ref)
+def test_reference_dat_fixtures_readable(tmp_path):
+    """The in-repo 2D trench fixture, written in the reference's grid-file
+    layout (numPoints, gridDelta, points, normals), parses back cleanly."""
+    from viennaray_tpu.io import fixtures
+
+    pts0, nrm0 = fixtures.create_trench_grid_2d(grid_delta=0.1)
+    ref = tmp_path / "trenchGrid2D.dat"
+    with open(ref, "w") as f:
+        f.write(f"{len(pts0)} 0.1\n")
+        for q in np.concatenate([pts0, nrm0]):
+            f.write(" ".join(repr(float(x)) for x in q) + "\n")
+    gd, pts, nrm = dat.read_grid_from_file(str(ref))
     assert gd > 0 and len(pts) == len(nrm) > 100
+    np.testing.assert_array_equal(pts, pts0)
     norms = np.linalg.norm(nrm, axis=1)
     np.testing.assert_allclose(norms, 1.0, atol=1e-4)
 

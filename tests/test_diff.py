@@ -159,12 +159,7 @@ def test_diff_flux_matches_nondiff_flux(monkeypatch):
     """With roulette off and enough bounces, the scan path and the while_loop
     path produce identical flux for the same key. Runs at the no-compaction
     width (<= 512): compaction permutes lanes and with them the lane-indexed
-    randomness, which the fixed-length scan path never does.
-
-    This is an UNFUSED-path equivalence contract (the differentiable scan
-    path always runs unfused); pin the while path unfused too so the
-    fused-interpret CI leg compares like with like."""
-    monkeypatch.setenv("VIENNARAY_TPU_FUSED_INTERPRET", "0")
+    randomness, which the fixed-length scan path never does."""
     geometry, source, particle, bbox, config = _setup(sticking=0.9)
     config = config.__class__(**{**config.__dict__, "num_rays_fixed": 512,
                                  "ray_batch_size": 512})
@@ -315,3 +310,41 @@ def test_grad_sticking_batched_driver():
     # statistically, not bitwise
     rel = abs(g2 - g1) / max(abs(g1), 1e-9)
     assert rel < 0.35, (g1, g2)
+
+
+def test_grad_through_hit_kernel_matches_brute_force(monkeypatch):
+    """The differentiable trace with the nearest-hit kernel (interpret mode;
+    hit selection on stop_gradient inputs, hit time recomputed from the
+    selected prim) gives the flux and the sticking and point gradients of
+    the brute-force path, whose min() routes the same gradient."""
+    from viennaray_tpu.ops import hit_kernel
+
+    geometry, source, particle, bbox, config = _setup()
+    # 1/distance-weighted deposits make the flux depend on hit positions
+    config = config.__class__(**{**config.__dict__, "use_wdist": True})
+    key = jax.random.PRNGKey(5)
+    R = 1024
+    ray_indices = jnp.arange(R, dtype=jnp.int32)
+    valid = jnp.ones((R,), bool)
+
+    def grads():
+        def loss(s, pts):
+            f = trace_flux(
+                geometry.replace(points=pts), source,
+                particle.replace(sticking=s), bbox, key, ray_indices, valid,
+                config, "disk", num_bounces=6,
+            )
+            return jnp.sum(f * jnp.linspace(0.5, 1.5, f.shape[0]))
+
+        return jax.value_and_grad(loss, argnums=(0, 1))(
+            particle.sticking, geometry.points)
+
+    v_ref, (gs_ref, gp_ref) = grads()
+    monkeypatch.setattr(hit_kernel, "disk_kernel", lambda n: "interpret")
+    v_k, (gs_k, gp_k) = grads()
+    np.testing.assert_allclose(float(v_k), float(v_ref), rtol=1e-5)
+    np.testing.assert_allclose(float(gs_k), float(gs_ref), rtol=1e-4)
+    assert np.abs(np.asarray(gp_ref)).max() > 0
+    np.testing.assert_allclose(np.asarray(gp_k), np.asarray(gp_ref),
+                               rtol=1e-3, atol=1e-3 * np.abs(
+                                   np.asarray(gp_ref)).max())

@@ -1,5 +1,5 @@
 """2-process multi-host execution test (SURVEY §2.9/§5.8's net-new
-communication backend; VERDICT r3 item 5).
+communication backend).
 
 Spawns two worker processes, each owning one virtual CPU device, joined by
 ``jax.distributed.initialize`` (via ``initialize_distributed``) into a

@@ -165,3 +165,25 @@ def test_line_mesh_drops_zero_length():
     lines = np.array([[0, 1], [1, 2]], np.uint32)
     lm = LineMesh(nodes=nodes, lines=lines, grid_delta=0.5)
     assert len(lm.lines) == 1
+
+
+def test_trench_lines_2d_polyline():
+    """The line2d fixture is one connected polyline whose left-hand normals
+    point up on the shelves and bottom and into the trench on the walls."""
+    import viennaray_tpu as vrt
+    from viennaray_tpu.io import fixtures
+
+    nodes, lines = fixtures.create_trench_lines_2d(grid_delta=0.5)
+    assert nodes.shape[1] == 3 and (nodes[:, 2] == 0).all()
+    assert (lines[1:, 0] == lines[:-1, 1]).all()
+    mesh = vrt.LineMesh(nodes=nodes, lines=lines, grid_delta=0.5)
+    mid = 0.5 * (nodes[lines[:, 0]] + nodes[lines[:, 1]])
+    n = mesh.normals
+    flat = np.isclose(n[:, 1], 1.0)
+    wall = ~flat
+    assert flat.sum() + wall.sum() == len(lines)
+    # wall normals point toward the trench axis x = 0
+    assert (np.sign(n[wall, 0]) == -np.sign(mid[wall, 0])).all()
+    np.testing.assert_allclose(
+        np.linalg.norm(nodes[lines[:, 1]] - nodes[lines[:, 0]], axis=1),
+        0.5, rtol=1e-5)

@@ -39,15 +39,15 @@ def _rel_l2(a, b):
 
 def _check(norm, golden):
     """Monte-Carlo-sized tolerance cross-backend; BITWISE on the golden's
-    own generation conditions (CPU backend, unfused path) — the trace is
+    own generation conditions (CPU backend, same CPU type) — the trace is
     deterministic there, so any drift beyond reordering means a physics
-    change (VERDICT r2 weak #8: 5% hides subtle drift).
+    change (5% alone would hide subtle drift).
 
     VIENNARAY_TPU_GOLDEN_BITWISE=1 forces the bitwise assert regardless of
-    the fingerprint gate — the CI in-job leg (VERDICT r4 item 3) generates
-    the goldens on the SAME runner immediately before this test, so
-    bitwise reproduction (the rngSeed contract, tests/rngSeed/rngSeed.cpp
-    analog, cross-process) must hold unconditionally there."""
+    the fingerprint gate — the CI in-job leg generates the goldens on the
+    SAME runner immediately before this test, so bitwise reproduction (the
+    rngSeed contract, tests/rngSeed/rngSeed.cpp analog, cross-process) must
+    hold unconditionally there."""
     assert _rel_l2(norm, golden) < 0.05
     import jax
 
@@ -58,7 +58,6 @@ def _check(norm, golden):
     force = os.environ.get("VIENNARAY_TPU_GOLDEN_BITWISE") == "1"
     if force or (
         jax.default_backend() == "cpu"
-        and os.environ.get("VIENNARAY_TPU_FUSED_INTERPRET") != "1"
         and gen_fp == _cpu_fingerprint()  # XLA:CPU codegen is per-microarch
     ):
         np.testing.assert_array_equal(

@@ -19,18 +19,9 @@ from viennaray_tpu.io import fixtures
 
 from oracle_ref import available, trace_disks_oracle
 
-import os
-
-pytestmark = [
-    pytest.mark.skipif(not available(), reason="oracle build unavailable"),
-    # the parity contract is about trace SEMANTICS; the default (unfused)
-    # leg covers it. Interpret-mode megakernels at 131k rays are
-    # prohibitively slow for the fused-interpret CI leg.
-    pytest.mark.skipif(
-        os.environ.get("VIENNARAY_TPU_FUSED_INTERPRET") == "1",
-        reason="oracle parity runs on the unfused leg",
-    ),
-]
+pytestmark = pytest.mark.skipif(
+    not available(), reason="oracle build unavailable"
+)
 
 BATCH = 32768
 
@@ -41,7 +32,7 @@ def _rel_l2(a, b):
     return np.linalg.norm(a - b) / max(np.linalg.norm(a), 1e-30)
 
 
-def _run_tpu(pts, nrm, *, dim, grid_delta, sticking, num_rays, boundary,
+def _run_tracer(pts, nrm, *, dim, grid_delta, sticking, num_rays, boundary,
              reflection="diffuse", use_wdist=False, seed=42):
     t = vrt.TraceDisk(dim=dim)
     t.set_geometry(pts.astype(np.float32), nrm.astype(np.float32), grid_delta)
@@ -70,7 +61,7 @@ def _run_tpu(pts, nrm, *, dim, grid_delta, sticking, num_rays, boundary,
 
 
 def _parity_case(pts, nrm, *, dim, grid_delta, sticking, boundary,
-                 rays_oracle, rays_tpu, reflection="diffuse",
+                 rays_oracle, rays_traced, reflection="diffuse",
                  use_wdist=False, noise_cap=0.05):
     disk_radius = grid_delta * vrt.config.disk_factor(dim)
     kw = dict(
@@ -83,9 +74,9 @@ def _parity_case(pts, nrm, *, dim, grid_delta, sticking, boundary,
     o2, c2 = trace_disks_oracle(
         pts, nrm, disk_radius, num_rays=rays_oracle, seed=202, **kw
     )
-    tf, info = _run_tpu(
+    tf, info = _run_tracer(
         pts, nrm, dim=dim, grid_delta=grid_delta, sticking=sticking,
-        num_rays=rays_tpu, boundary=boundary, reflection=reflection,
+        num_rays=rays_traced, boundary=boundary, reflection=reflection,
         use_wdist=use_wdist,
     )
 
@@ -97,7 +88,7 @@ def _parity_case(pts, nrm, *, dim, grid_delta, sticking, boundary,
     noise = _rel_l2(o1n, o2n)  # ~ sqrt(2) x one-run MC noise
     cross = _rel_l2(o1n, tn)
     assert noise < noise_cap, f"oracle self-noise too high: {noise:.4f}"
-    # with rays_tpu >= rays_oracle, E[cross] <= noise; 1.45x headroom
+    # with rays_traced >= rays_oracle, E[cross] <= noise; 1.45x headroom
     assert cross < max(1.45 * noise, 0.004), (
         f"flux parity violated: cross={cross:.4f} vs self-noise={noise:.4f}"
     )
@@ -121,7 +112,7 @@ def test_parity_trench2d_reflective():
     _parity_case(
         pts, nrm, dim=2, grid_delta=0.1, sticking=0.2,
         boundary=("reflective", "reflective"),
-        rays_oracle=120_000, rays_tpu=131_072,
+        rays_oracle=120_000, rays_traced=131_072,
     )
 
 
@@ -131,7 +122,7 @@ def test_parity_trench2d_periodic_low_sticking():
     _parity_case(
         pts, nrm, dim=2, grid_delta=0.1, sticking=0.1,
         boundary=("periodic", "periodic"),
-        rays_oracle=100_000, rays_tpu=131_072,
+        rays_oracle=100_000, rays_traced=131_072,
     )
 
 
@@ -141,7 +132,7 @@ def test_parity_trench3d_periodic():
     _parity_case(
         pts, nrm, dim=3, grid_delta=0.5, sticking=0.2,
         boundary=("periodic", "periodic"),
-        rays_oracle=120_000, rays_tpu=131_072, noise_cap=0.08,
+        rays_oracle=120_000, rays_traced=131_072, noise_cap=0.08,
     )
 
 
@@ -151,7 +142,7 @@ def test_parity_trench2d_specular():
     _parity_case(
         pts, nrm, dim=2, grid_delta=0.1, sticking=0.5,
         boundary=("reflective", "reflective"),
-        rays_oracle=100_000, rays_tpu=131_072, reflection="specular",
+        rays_oracle=100_000, rays_traced=131_072, reflection="specular",
     )
 
 
@@ -161,7 +152,7 @@ def test_parity_trench2d_wdist():
     _parity_case(
         pts, nrm, dim=2, grid_delta=0.1, sticking=0.3,
         boundary=("reflective", "reflective"),
-        rays_oracle=80_000, rays_tpu=131_072, use_wdist=True,
+        rays_oracle=80_000, rays_traced=131_072, use_wdist=True,
     )
 
 
@@ -239,7 +230,7 @@ def test_parity_trench2d_gas_scattering():
     t.set_ray_batch_size(BATCH)
     tf = np.asarray(t.apply(), np.float64)
     info = t.get_ray_trace_info()
-    assert info.particle_hits > 0  # TPU-side scatter events
+    assert info.particle_hits > 0  # tracer-side scatter events
 
     o1n, o2n, tn = o1 / 100_000, o2 / 100_000, tf / info.num_rays
     noise = _rel_l2(o1n, o2n)
@@ -299,66 +290,63 @@ def test_parity_trench3d_triangles():
     assert abs(refl_t - refl_o) / max(refl_o, 0.05) < 0.02
 
 
-def test_parity_fused_interpret_direct():
-    """Oracle vs the FUSED megakernel directly (interpret mode, small ray
-    count): closes the oracle -> unfused -> fused chain without the
-    unfused intermediary (VERDICT r3 item 3). chunks_swept > 0 asserts
-    the fused path actually engaged."""
-    env = {
-        "VIENNARAY_TPU_FUSED_INTERPRET": "1",
-        # 2-stage ladder: minimizes distinct interpret-kernel shapes
-        # (compile time), physics unchanged (streams differ; comparison is
-        # statistical)
-        "VIENNARAY_TPU_STAGE_SHRINK": "16",
-    }
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        # grid_delta 0.12 -> a geometry shape no other test traces, so the
-        # jit cache cannot serve a stale UNFUSED executable for these
-        # shapes (env is read at trace time)
-        pts, nrm = fixtures.create_trench_grid_2d(grid_delta=0.12)
-        disk_radius = 0.12 * vrt.config.disk_factor(2)
-        kw = dict(
-            dim=2, disk_radius=disk_radius, sticking=0.25,
-            boundary=("reflective", "reflective"), reflection="diffuse",
-        )
-        # oracle noise measured at the TPU ray count (8192) for a fair
-        # band; two large runs pin the mean
-        o1, c1 = trace_disks_oracle(pts, nrm, disk_radius,
-                                    num_rays=200_000, seed=101, **kw)
-        s1, _ = trace_disks_oracle(pts, nrm, disk_radius,
-                                   num_rays=8192, seed=303, **kw)
-        s2, _ = trace_disks_oracle(pts, nrm, disk_radius,
-                                   num_rays=8192, seed=404, **kw)
+def test_parity_fused_interpret_direct(monkeypatch):
+    """Oracle vs the trace with the nearest-hit kernel (interpret mode,
+    small ray count): closes the oracle -> brute force -> kernel chain
+    without the brute-force intermediary. The kernel wrapper is wrapped to
+    count calls, asserting the kernel path actually engaged."""
+    from viennaray_tpu.ops import hit_kernel
 
-        t = vrt.TraceDisk(dim=2)
-        t.set_geometry(pts.astype(np.float32), nrm.astype(np.float32), 0.12)
-        t.set_boundary_conditions([vrt.BoundaryCondition.REFLECTIVE] * 2)
-        t.set_particle_type(vrt.DiffuseParticle(0.25, "flux"))
-        t.set_source_direction(vrt.TraceDirection.POS_Y)
-        t.set_number_of_rays_fixed(8192)
-        t.set_rng_seed(42)
-        t.set_ray_batch_size(8192)
-        tf = np.asarray(t.apply(), np.float64)
-        info = t.get_ray_trace_info()
-        assert info.chunks_swept > 0, "fused megakernel did not engage"
+    calls = []
+    real = hit_kernel.nearest_hit
 
-        o1n = o1 / 200_000
-        tn = tf / info.num_rays
-        # small-run MC noise band vs the pinned oracle mean
-        noise_small = max(_rel_l2(o1n, s1 / 8192), _rel_l2(o1n, s2 / 8192))
-        cross = _rel_l2(o1n, tn)
-        assert cross < 1.45 * noise_small, (
-            f"fused-direct parity violated: cross={cross:.4f} "
-            f"noise={noise_small:.4f}"
-        )
-        geo_o = c1["geometry_hits"] / 200_000
-        geo_t = info.geometry_hits / info.num_rays
-        assert abs(geo_t - geo_o) / geo_o < 0.05
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    def counted(*a, **k):
+        calls.append(k.get("kind"))
+        return real(*a, **k)
+
+    monkeypatch.setattr(hit_kernel, "nearest_hit", counted)
+    monkeypatch.setattr(hit_kernel, "disk_kernel", lambda n: "interpret")
+    # 2-stage ladder: fewer distinct kernel shapes (compile time), physics
+    # unchanged (streams differ; comparison is statistical)
+    monkeypatch.setenv("VIENNARAY_TPU_STAGE_SHRINK", "16")
+    # grid_delta 0.12 -> a geometry shape no other test traces, so the
+    # jit cache cannot serve an executable traced without the kernel
+    pts, nrm = fixtures.create_trench_grid_2d(grid_delta=0.12)
+    disk_radius = 0.12 * vrt.config.disk_factor(2)
+    kw = dict(
+        dim=2, disk_radius=disk_radius, sticking=0.25,
+        boundary=("reflective", "reflective"), reflection="diffuse",
+    )
+    # oracle noise measured at the traced ray count (8192) for a fair
+    # band; one large run pins the mean
+    o1, c1 = trace_disks_oracle(pts, nrm, disk_radius,
+                                num_rays=200_000, seed=101, **kw)
+    s1, _ = trace_disks_oracle(pts, nrm, disk_radius,
+                               num_rays=8192, seed=303, **kw)
+    s2, _ = trace_disks_oracle(pts, nrm, disk_radius,
+                               num_rays=8192, seed=404, **kw)
+
+    t = vrt.TraceDisk(dim=2)
+    t.set_geometry(pts.astype(np.float32), nrm.astype(np.float32), 0.12)
+    t.set_boundary_conditions([vrt.BoundaryCondition.REFLECTIVE] * 2)
+    t.set_particle_type(vrt.DiffuseParticle(0.25, "flux"))
+    t.set_source_direction(vrt.TraceDirection.POS_Y)
+    t.set_number_of_rays_fixed(8192)
+    t.set_rng_seed(42)
+    t.set_ray_batch_size(8192)
+    tf = np.asarray(t.apply(), np.float64)
+    info = t.get_ray_trace_info()
+    assert "disk" in calls, "nearest-hit kernel did not engage"
+
+    o1n = o1 / 200_000
+    tn = tf / info.num_rays
+    # small-run MC noise band vs the pinned oracle mean
+    noise_small = max(_rel_l2(o1n, s1 / 8192), _rel_l2(o1n, s2 / 8192))
+    cross = _rel_l2(o1n, tn)
+    assert cross < 1.45 * noise_small, (
+        f"kernel-direct parity violated: cross={cross:.4f} "
+        f"noise={noise_small:.4f}"
+    )
+    geo_o = c1["geometry_hits"] / 200_000
+    geo_t = info.geometry_hits / info.num_rays
+    assert abs(geo_t - geo_o) / geo_o < 0.05

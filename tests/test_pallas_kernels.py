@@ -1,7 +1,9 @@
-"""Pallas kernel coverage on CPU via interpret mode (tiny shapes).
+"""The fused nearest-hit kernel (ops/hit_kernel.py, Pallas through Triton)
+on the CPU via interpret mode, against the XLA brute force.
 
-The real TPU runs are validated manually/in bench; these keep the kernels
-from regressing in CPU-only CI runs."""
+The compiled kernel runs on the GPU (chip_smoke.py checks it there at the
+benchmark widths); these keep its arithmetic, padding, chunk skip and tie
+rule from regressing in CPU-only runs."""
 
 import jax
 import jax.numpy as jnp
@@ -10,7 +12,7 @@ import pytest
 
 import viennaray_tpu as vrt
 from viennaray_tpu.io import fixtures
-from viennaray_tpu.ops import intersect, pallas_intersect as PI
+from viennaray_tpu.ops import hit_kernel, intersect, soa
 
 
 def _rays(n, z, lo=-1.5, hi=1.5, seed=0):
@@ -26,22 +28,59 @@ def _rays(n, z, lo=-1.5, hi=1.5, seed=0):
     return org, d / jnp.linalg.norm(d, axis=1, keepdims=True)
 
 
+def _random_rays(geo, n, seed=0):
+    """Origins in the geometry's box (lifted above it), directions uniform
+    on the sphere."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.asarray(geo.bbox, np.float64)
+    hi = hi.copy()
+    hi[2] += 1.0
+    org = lo + (hi - lo) * rng.random((n, 3))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return jnp.asarray(org, jnp.float32), jnp.asarray(d, jnp.float32)
+
+
+def _kernel(geo, kind, org, d):
+    return hit_kernel.nearest_hit(
+        org, d, geo.prims_soa, geo.soa_perm, geo.soa_chunk_bbs, kind=kind,
+        interpret=True,
+    )
+
+
+def _brute(geo, kind, org, d):
+    if kind == "disk":
+        return intersect.disk_nearest_hit(
+            org, d, geo.points, geo.normals, geo.radii, 1e-4)
+    return intersect.triangle_nearest_hit(
+        org, d, geo.vertices, geo.triangles, 1e-4)
+
+
+def _geometry(kind, gd):
+    if kind == "disk":
+        pts, nrm = fixtures.create_trench_grid_3d(
+            grid_delta=gd, extent=3.0, trench_width=2.0, trench_depth=2.0)
+        return vrt.DiskGeometry.build(pts, nrm, gd, dim=3)
+    verts, tris = fixtures.create_trench_mesh_3d(
+        grid_delta=gd, extent=3.0, trench_width=2.0, trench_depth=2.0)
+    return vrt.TriangleGeometry.build(verts, tris, gd, dim=3)
+
+
+def _assert_matches(a, b):
+    tk, ik, hk = (np.asarray(x) for x in a)
+    tb, ib, hb = (np.asarray(x) for x in b)
+    np.testing.assert_array_equal(hk, hb)
+    np.testing.assert_array_equal(ik[hb], ib[hb])
+    np.testing.assert_allclose(tk[hb], tb[hb], rtol=1e-5)
+    assert (ik[~hb] == 0).all()  # a miss reports prim 0, as the brute force
+
+
 def test_pallas_disk_kernel_interpret_matches_xla():
     pts, nrm = fixtures.create_plane_grid(0.5, 1.5, (0, 1, 2))
     geo = vrt.DiskGeometry.build(pts, nrm, 0.5, dim=3)
     org, d = _rays(512, 0.6)
-    tp, ip, hp = PI.disk_nearest_hit_pallas(
-        org, d, geo.prims_soa, geo.soa_perm, geo.soa_chunk_bbs,
-        rt=256, interpret=True,
-    )
-    tb, ib, hb = intersect.disk_nearest_hit(
-        org, d, geo.points, geo.normals, geo.radii, 1e-4
-    )
-    np.testing.assert_array_equal(np.asarray(hp), np.asarray(hb))
-    m = np.asarray(hp)
-    np.testing.assert_allclose(
-        np.asarray(tp)[m], np.asarray(tb)[m], rtol=1e-4
-    )
+    _assert_matches(_kernel(geo, "disk", org, d),
+                    _brute(geo, "disk", org, d))
 
 
 def test_pallas_triangle_kernel_interpret_matches_xla():
@@ -60,177 +99,88 @@ def test_pallas_triangle_kernel_interpret_matches_xla():
     tris = np.array(tris, np.int32)
     geo = vrt.TriangleGeometry.build(verts, tris, 0.75, dim=3)
     org, d = _rays(512, 0.6)
-    tp, ip, hp = PI.triangle_nearest_hit_pallas(
-        org, d, geo.prims_soa, geo.soa_perm, geo.soa_chunk_bbs,
-        rt=256, interpret=True,
-    )
-    tb, ib, hb = intersect.triangle_nearest_hit(
-        org, d, geo.vertices, geo.triangles, 1e-4
-    )
-    np.testing.assert_array_equal(np.asarray(hp), np.asarray(hb))
-    m = np.asarray(hp)
-    np.testing.assert_allclose(
-        np.asarray(tp)[m], np.asarray(tb)[m], rtol=1e-4
-    )
-    np.testing.assert_array_equal(np.asarray(ip)[m], np.asarray(ib)[m])
+    _assert_matches(_kernel(geo, "triangle", org, d),
+                    _brute(geo, "triangle", org, d))
 
 
-def test_flux_histogram_matches_numpy():
-    """Pallas VMEM-one-hot histogram == np.add.at (interpret mode)."""
-    import numpy as np
-
-    from viennaray_tpu.ops.pallas_histogram import flux_histogram
-
-    rng = np.random.default_rng(11)
-    for E, n in [(1000, 300), (4096, 9000), (777, 2993)]:
-        ids = rng.integers(0, n, E).astype(np.int32)
-        w = rng.random(E).astype(np.float32)
-        ref = np.zeros(n, np.float32)
-        np.add.at(ref, ids, w)
-        got = np.asarray(
-            flux_histogram(jnp.asarray(ids), jnp.asarray(w), n, interpret=True)
-        )
-        rel = np.abs(got - ref).max() / ref.max()
-        assert rel < 1e-5, (E, n, rel)
+@pytest.mark.parametrize("kind", ["disk", "triangle"])
+@pytest.mark.parametrize("n_rays,gd", [(1000, 0.4), (333, 0.55)])
+def test_kernel_ragged_counts_match_brute_force(kind, n_rays, gd):
+    """Ray counts that are no multiple of the block, prim counts that are
+    no multiple of the chunk (padding on both sides), many chunks."""
+    geo = _geometry(kind, gd)
+    assert geo.num_primitives % soa.CHUNK != 0
+    assert geo.soa_chunk_bbs.shape[0] > 2
+    org, d = _random_rays(geo, n_rays)
+    out = _kernel(geo, kind, org, d)
+    assert out[0].shape == (n_rays,)
+    assert np.asarray(out[2]).sum() > n_rays // 10
+    _assert_matches(out, _brute(geo, kind, org, d))
 
 
-def test_fused_bounce_multi_matches_sequential():
-    """n_sub=2 megakernel == two n_sub=1 calls when fed the same uniforms.
-
-    The in-kernel bounce arithmetic is identical; only the batching of the
-    hit records differs, so final ray state must agree bitwise."""
-    import numpy as np
-
-    from viennaray_tpu.config import BoundaryCondition, ReflectionKind
-    from viennaray_tpu.geometry.disk_geometry import DiskGeometry
-    from viennaray_tpu.io import fixtures
-    from viennaray_tpu.ops import pallas_bounce
-
-    pts, nrm = fixtures.create_trench_grid_3d(
-        grid_delta=0.5, extent=3.0, trench_width=2.0, trench_depth=2.0
-    )
-    geo = DiskGeometry.build(pts, nrm, grid_delta=0.5)
-    R = 256
-    key = jax.random.PRNGKey(0)
-    k1, k2, k3 = jax.random.split(key, 3)
-    org = jnp.stack(
-        [
-            jax.random.uniform(k1, (R,), minval=-2.0, maxval=2.0),
-            jax.random.uniform(k2, (R,), minval=-2.0, maxval=2.0),
-            jnp.full((R,), 3.5),
-        ],
-        axis=1,
-    )
-    dirn = jnp.tile(jnp.asarray([[0.1, 0.0, -0.99]]), (R, 1))
-    dirn = dirn / jnp.linalg.norm(dirn, axis=1, keepdims=True)
-    w = jnp.ones((R, 1), jnp.float32)
-    flags = jnp.concatenate(
-        [jnp.ones((R, 1)), jnp.zeros((R, 3))], axis=1
-    ).astype(jnp.float32)
-    uni = jax.random.uniform(k3, (R, 6), dtype=jnp.float32)
-    walls = jnp.asarray(
-        [[-3.25, 3.25, -3.25, 3.25, -2.0, 3.6, 0.55, 0.0]], jnp.float32
-    )
-    stick = jnp.asarray([[0.3]], jnp.float32)
-    kw = dict(
-        t_near=1e-4, dim=3, first_dir=0, second_dir=1, ray_axis=2,
-        bc1=BoundaryCondition.PERIODIC, bc2=BoundaryCondition.PERIODIC,
-        refl_kind=ReflectionKind.DIFFUSE, interpret=True,
-    )
-    o2, d2, w2, f2, st2, fl2 = pallas_bounce.fused_bounce(
-        org, dirn, w, w, flags, uni, geo.prims_soa, geo.soa_chunk_bbs,
-        walls, stick, n_sub=2, **kw
-    )
-    oa, da, wa, fa, sta, fla = pallas_bounce.fused_bounce(
-        org, dirn, w, w, flags, uni[:, 0:3], geo.prims_soa,
-        geo.soa_chunk_bbs, walls, stick, n_sub=1, **kw
-    )
-    ob, db, wb, fb, stb, flb = pallas_bounce.fused_bounce(
-        oa, da, wa, w, fa, uni[:, 3:6], geo.prims_soa, geo.soa_chunk_bbs,
-        walls, stick, n_sub=1, **kw
-    )
-    np.testing.assert_array_equal(np.asarray(o2), np.asarray(ob))
-    np.testing.assert_array_equal(np.asarray(d2), np.asarray(db))
-    np.testing.assert_array_equal(np.asarray(w2), np.asarray(wb))
-    np.testing.assert_array_equal(np.asarray(f2), np.asarray(fb))
-    np.testing.assert_array_equal(
-        np.asarray(st2), np.asarray(sta) + np.asarray(stb)
-    )
-    # in-kernel flux: per-chunk accumulation order is identical
-    np.testing.assert_array_equal(
-        np.asarray(fl2), np.asarray(fla) + np.asarray(flb)
-    )
-    # at least some rays actually collided in bounce 1 (test is non-vacuous)
-    assert float(np.asarray(sta)[:, 0].sum()) > 50
-    # collisions actually deposited flux
-    assert float(np.asarray(fl2).sum()) > 0.0
-
-
-def test_fused_bounce_per_material_sticking():
-    """per_mat megakernel: a constant per-prim table equals the scalar path
-    bitwise; a varying table lands each collided ray's weight exactly on
-    w*(1-s[mat]) for one of the table's entries."""
-    import numpy as np
-
-    from viennaray_tpu.config import BoundaryCondition, ReflectionKind
-    from viennaray_tpu.geometry.disk_geometry import DiskGeometry
-    from viennaray_tpu.io import fixtures
-    from viennaray_tpu.ops import pallas_bounce
-
-    pts, nrm = fixtures.create_trench_grid_3d(
-        grid_delta=0.5, extent=3.0, trench_width=2.0, trench_depth=2.0
-    )
-    geo = DiskGeometry.build(pts, nrm, grid_delta=0.5)
-    npad = geo.prims_soa.shape[1]
-    R = 256
-    key = jax.random.PRNGKey(7)
-    k1, k2, k3 = jax.random.split(key, 3)
-    org = jnp.stack(
-        [
-            jax.random.uniform(k1, (R,), minval=-2.0, maxval=2.0),
-            jax.random.uniform(k2, (R,), minval=-2.0, maxval=2.0),
-            jnp.full((R,), 3.5),
-        ],
-        axis=1,
-    )
-    dirn = jnp.tile(jnp.asarray([[0.05, 0.0, -0.999]]), (R, 1))
-    dirn = dirn / jnp.linalg.norm(dirn, axis=1, keepdims=True)
-    w = jnp.ones((R, 1), jnp.float32)
-    flags = jnp.concatenate(
-        [jnp.ones((R, 1)), jnp.zeros((R, 3))], axis=1
-    ).astype(jnp.float32)
-    uni = jax.random.uniform(k3, (R, 3), dtype=jnp.float32)
-    walls = jnp.asarray(
-        [[-3.25, 3.25, -3.25, 3.25, -2.0, 3.6, 0.55, 0.0]], jnp.float32
-    )
-    kw = dict(
-        t_near=1e-4, dim=3, first_dir=0, second_dir=1, ray_axis=2,
-        bc1=BoundaryCondition.PERIODIC, bc2=BoundaryCondition.PERIODIC,
-        refl_kind=ReflectionKind.DIFFUSE, interpret=True, n_sub=1,
-        roulette=False,
-    )
-    args = (org, dirn, w, w, flags, uni, geo.prims_soa, geo.soa_chunk_bbs,
-            walls)
-
-    # constant table == scalar, bitwise
-    s = 0.3
-    out_scalar = pallas_bounce.fused_bounce(
-        *args, jnp.asarray([[s]], jnp.float32), per_mat=False, **kw
-    )
-    out_table = pallas_bounce.fused_bounce(
-        *args, jnp.full((1, npad), s, jnp.float32), per_mat=True, **kw
-    )
-    for a, b in zip(out_scalar, out_table):
+def test_kernel_chunk_skip_keeps_nearest_hit():
+    """Coherent downward rays over a trench: most chunks fail the block's
+    slab test once the top surface is hit; the result must not change. A
+    disabled skip (every box infinite) gives the same answer."""
+    geo = _geometry("disk", 0.25)
+    org, d = _rays(512, 1.0, lo=-2.5, hi=2.5)
+    skip = _kernel(geo, "disk", org, d)
+    open_boxes = jnp.concatenate(
+        [jnp.full((geo.soa_chunk_bbs.shape[0], 3), -3e38),
+         jnp.full((geo.soa_chunk_bbs.shape[0], 3), 3e38),
+         jnp.zeros((geo.soa_chunk_bbs.shape[0], 2))], axis=1)
+    full = hit_kernel.nearest_hit(
+        org, d, geo.prims_soa, geo.soa_perm, open_boxes, kind="disk",
+        interpret=True)
+    for a, b in zip(skip, full):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    _assert_matches(skip, _brute(geo, "disk", org, d))
 
-    # varying table: material = (z < 0), sticking 0.25 below / 0.75 above
-    z_sorted = np.asarray(geo.prims_soa)[2]
-    table = np.where(z_sorted < 0.0, 0.25, 0.75).astype(np.float32)
-    o, d, w_out, f, st, fl = pallas_bounce.fused_bounce(
-        *args, jnp.asarray(table[None, :]), per_mat=True, **kw
-    )
-    collided = np.asarray(st)[:, 0] > 0.5
-    assert collided.sum() > 50
-    wv = np.asarray(w_out)[collided, 0]
-    ok = np.isclose(wv, 0.75) | np.isclose(wv, 0.25) | np.isclose(wv, 0.0)
-    assert ok.all(), wv[~ok][:5]
+
+@pytest.mark.parametrize("kind", ["disk", "triangle"])
+def test_kernel_ties_go_to_lowest_prim_index(kind):
+    """Every prim duplicated: each hit has two equal candidates, and the
+    kernel must pick the lower original index, as the brute force does,
+    whatever order the packing put them in."""
+    if kind == "disk":
+        pts, nrm = fixtures.create_plane_grid(0.5, 1.5, (0, 1, 2))
+        pts = np.concatenate([pts[::-1], pts])
+        nrm = np.concatenate([nrm, nrm])
+        geo = vrt.DiskGeometry.build(pts, nrm, 0.5, dim=3)
+        org, d = _rays(256, 0.6)
+    else:
+        verts, tris = fixtures.create_trench_mesh_3d(
+            grid_delta=0.5, extent=2.0, trench_width=2.0, trench_depth=1.0)
+        tris = np.concatenate([tris[::-1], tris])
+        geo = vrt.TriangleGeometry.build(verts, tris, 0.5, dim=3)
+        org, d = _rays(256, 0.6, lo=-1.8, hi=1.8)
+    out = _kernel(geo, kind, org, d)
+    hit = np.asarray(out[2])
+    assert hit.sum() > 50
+    half = geo.num_primitives // 2
+    assert (np.asarray(out[1])[hit] < half).all()
+    _assert_matches(out, _brute(geo, kind, org, d))
+
+
+def test_kernel_choice_is_xla_off_the_gpu():
+    """The package never picks the kernel (or interpret mode) by itself
+    off the GPU."""
+    for choose in (hit_kernel.disk_kernel, hit_kernel.triangle_kernel):
+        assert choose(3000) == "xla"
+
+
+def test_soa_packing_covers_every_prim_once():
+    pts, nrm = fixtures.create_trench_grid_3d(grid_delta=0.5)
+    prims, perm, bbs = soa.pack_disk_prims(
+        pts, nrm, np.full(len(pts), 0.2, np.float32))
+    n = len(pts)
+    assert prims.shape[1] % soa.CHUNK == 0
+    assert bbs.shape[0] == prims.shape[1] // soa.CHUNK
+    assert sorted(perm[:n].tolist()) == list(range(n))
+    # each real prim lies inside its chunk's box
+    for c in range(bbs.shape[0]):
+        lanes = np.arange(c * soa.CHUNK, min((c + 1) * soa.CHUNK, n))
+        if lanes.size:
+            p = prims[0:3, lanes].T
+            assert (p >= bbs[c, 0:3] - 1e-6).all()
+            assert (p <= bbs[c, 3:6] + 1e-6).all()

@@ -1,5 +1,5 @@
-"""Round-3 feature tests: unfused window flux model, multi-channel local
-data, f64 cross-batch accumulation."""
+"""Round-3 feature tests: window flux model, multi-channel local data, f64
+cross-batch accumulation."""
 
 import dataclasses
 
@@ -12,26 +12,25 @@ import viennaray_tpu as vrt
 from viennaray_tpu.config import TraceConfig, TraceDirection
 from viennaray_tpu.io import fixtures
 
-from test_fused_round2 import _force_fused, _trace_once, cfg2d  # noqa: F401
+from test_fused_round2 import _trace_once, _use_kernel, cfg2d  # noqa: F401
 
 
 def test_window_flux_model_unfused_matches_fused(monkeypatch, cfg2d):
-    """The unfused path must honor flux_model='window' with the same
-    semantics as the fused megakernel (VERDICT r2 #7): same RNG stream
-    (n_sub=1), same deposits up to summation order."""
+    """flux_model='window' gives the same deposits behind the kernel's hits
+    as behind the brute force's: same RNG stream, same hits."""
     pts, nrm = fixtures.create_trench_grid_2d(grid_delta=0.1)
     geo = vrt.DiskGeometry.build(pts, nrm, 0.1, dim=2)
     p = vrt.DiffuseParticle(0.1)
     cfg_w = dataclasses.replace(cfg2d, flux_model="window")
 
-    _force_fused(monkeypatch, True)
+    _use_kernel(monkeypatch, True)
     f_fused, c_fused = _trace_once(geo, "disk", cfg_w, p)
-    _force_fused(monkeypatch, False)
+    _use_kernel(monkeypatch, False)
     f_unfused, c_unfused = _trace_once(geo, "disk", cfg_w, p)
 
     assert f_fused.sum() > 0
     rel = np.linalg.norm(f_fused - f_unfused) / np.linalg.norm(f_fused)
-    assert rel < 5e-3, rel
+    assert rel < 1e-5, rel
     assert c_fused.geometry_hits == c_unfused.geometry_hits
     # window mode deposits MORE than neighbor mode on this trench
     f_nb, _ = _trace_once(geo, "disk", cfg2d, p)
@@ -122,155 +121,3 @@ def test_f64_accumulation_default_and_agreement():
     # identical streams: per-batch sums are bitwise equal, so the f64 sum
     # differs from the f32 sum only by accumulation error
     assert np.abs(f64_flux - f32_flux).max() <= 0.5
-
-
-def test_streamed_ordered_matches_resident_bitwise():
-    """The ORDERED streamed path (double-buffered sweep + deposit DMA — the
-    production HBM-streamed configuration, >=2 chunks) must stay bitwise
-    equal to the VMEM-resident ordered kernel across multiple fused
-    sub-bounces: same arithmetic and visit order, different data movement."""
-    from viennaray_tpu.config import BoundaryCondition, ReflectionKind
-    from viennaray_tpu.ops import pallas_bounce
-
-    pts, nrm = fixtures.create_trench_grid_3d(
-        grid_delta=0.22, extent=3.0, trench_width=2.0, trench_depth=2.0
-    )
-    geo = vrt.DiskGeometry.build(pts, nrm, grid_delta=0.22)
-    n_chunks = geo.soa_chunk_bbs.shape[0]
-    assert n_chunks >= 2, "need >=2 chunks to engage the ordered path"
-    R = 256
-    n_sub = 2
-    key = jax.random.PRNGKey(7)
-    k1, k2, k3 = jax.random.split(key, 3)
-    org = jnp.stack(
-        [
-            jax.random.uniform(k1, (R,), minval=-2.0, maxval=2.0),
-            jax.random.uniform(k2, (R,), minval=-2.0, maxval=2.0),
-            jnp.full((R,), 3.5),
-        ],
-        axis=1,
-    )
-    dirn = jnp.tile(jnp.asarray([[0.15, -0.1, -0.98]]), (R, 1))
-    dirn = dirn / jnp.linalg.norm(dirn, axis=1, keepdims=True)
-    w = jnp.ones((R, 1), jnp.float32)
-    flags = jnp.concatenate(
-        [jnp.ones((R, 1)), jnp.zeros((R, 3))], axis=1
-    ).astype(jnp.float32)
-    uni = jax.random.uniform(k3, (R, 3 * n_sub), dtype=jnp.float32)
-    nbr2 = float((2.0 * geo.disk_radius) ** 2)
-    walls = jnp.asarray(
-        [[-3.11, 3.11, -3.11, 3.11, -2.0, 3.6, 0.242, nbr2]], jnp.float32
-    )
-    stick = jnp.asarray([[0.3]], jnp.float32)
-    kw = dict(
-        t_near=1e-4, dim=3, first_dir=0, second_dir=1, ray_axis=2,
-        bc1=BoundaryCondition.PERIODIC, bc2=BoundaryCondition.PERIODIC,
-        refl_kind=ReflectionKind.DIFFUSE, interpret=True, n_sub=n_sub,
-        ordered=True,
-    )
-    args = (org, dirn, w, w, flags, uni, geo.prims_soa, geo.soa_chunk_bbs,
-            walls, stick)
-    out_res = pallas_bounce.fused_bounce(*args, stream=False, **kw)
-    out_str = pallas_bounce.fused_bounce(*args, stream=True, **kw)
-    for i, (a, b) in enumerate(zip(out_res, out_str)):
-        np.testing.assert_array_equal(
-            np.asarray(a), np.asarray(b), err_msg=f"output {i}"
-        )
-    assert float(np.asarray(out_res[5]).sum()) > 0.0
-    # deposits actually exercised the neighbor sweep (flux on >1 chunk row)
-    assert (np.asarray(out_res[5]).sum(axis=1) > 0).sum() >= 1
-
-
-def test_mxu_pick_matches_vpu_pick_bitwise():
-    """Pass-1 hit-field selection via one one-hot MXU contraction must be
-    BITWISE equal to the per-field VPU where+reduce picks: each sel row is
-    exactly one-hot, so the contraction reconstructs the winning lane's f32
-    fields exactly (disks, triangles, per-material sticking)."""
-    from viennaray_tpu.config import BoundaryCondition, ReflectionKind
-    from viennaray_tpu.geometry.mesh import TriangleMesh
-    from viennaray_tpu.ops import pallas_bounce
-
-    pts, nrm = fixtures.create_trench_grid_3d(
-        grid_delta=0.22, extent=3.0, trench_width=2.0, trench_depth=2.0
-    )
-    geo = vrt.DiskGeometry.build(pts, nrm, grid_delta=0.22)
-    R = 256
-    key = jax.random.PRNGKey(11)
-    k1, k2, k3 = jax.random.split(key, 3)
-    org = jnp.stack(
-        [
-            jax.random.uniform(k1, (R,), minval=-2.0, maxval=2.0),
-            jax.random.uniform(k2, (R,), minval=-2.0, maxval=2.0),
-            jnp.full((R,), 3.5),
-        ],
-        axis=1,
-    )
-    dirn = jnp.tile(jnp.asarray([[0.15, -0.1, -0.98]]), (R, 1))
-    dirn = dirn / jnp.linalg.norm(dirn, axis=1, keepdims=True)
-    w = jnp.ones((R, 1), jnp.float32)
-    flags = jnp.concatenate(
-        [jnp.ones((R, 1)), jnp.zeros((R, 3))], axis=1
-    ).astype(jnp.float32)
-    uni = jax.random.uniform(k3, (R, 6), dtype=jnp.float32)
-    nbr2 = float((2.0 * geo.disk_radius) ** 2)
-    walls = jnp.asarray(
-        [[-3.11, 3.11, -3.11, 3.11, -2.0, 3.6, 0.242, nbr2]], jnp.float32
-    )
-    kw = dict(
-        t_near=1e-4, dim=3, first_dir=0, second_dir=1, ray_axis=2,
-        bc1=BoundaryCondition.PERIODIC, bc2=BoundaryCondition.PERIODIC,
-        refl_kind=ReflectionKind.DIFFUSE, interpret=True, n_sub=2,
-    )
-    # disks with per-material sticking (sorted per-prim map)
-    stick_pm = (
-        0.1
-        + 0.5 * jax.random.uniform(
-            jax.random.PRNGKey(3), (1, geo.prims_soa.shape[1])
-        )
-    ).astype(jnp.float32)
-    args = (org, dirn, w, w, flags, uni, geo.prims_soa, geo.soa_chunk_bbs,
-            walls, stick_pm)
-    out_m = pallas_bounce.fused_bounce(*args, per_mat=True, mxu_pick=True,
-                                       **kw)
-    out_v = pallas_bounce.fused_bounce(*args, per_mat=True, mxu_pick=False,
-                                       **kw)
-    for i, (a, b) in enumerate(zip(out_m, out_v)):
-        np.testing.assert_array_equal(
-            np.asarray(a), np.asarray(b), err_msg=f"disk output {i}"
-        )
-    assert float(np.asarray(out_m[5]).sum()) > 0.0
-
-    # triangles (stored-normal rows)
-    tg = vrt.TriangleGeometry.build(
-        *_tri_trench(), grid_delta=0.5
-    )
-    stick = jnp.asarray([[0.3]], jnp.float32)
-    argt = (org, dirn, w, w, flags, uni, tg.prims_soa, tg.soa_chunk_bbs,
-            walls, stick)
-    out_mt = pallas_bounce.fused_bounce(
-        *argt, geo_kind="triangle", mxu_pick=True, **kw
-    )
-    out_vt = pallas_bounce.fused_bounce(
-        *argt, geo_kind="triangle", mxu_pick=False, **kw
-    )
-    for i, (a, b) in enumerate(zip(out_mt, out_vt)):
-        np.testing.assert_array_equal(
-            np.asarray(a), np.asarray(b), err_msg=f"tri output {i}"
-        )
-
-
-def _tri_trench():
-    """Small triangulated floor for the triangle-geometry MXU-pick check."""
-    n = 16
-    xs = np.linspace(-3.0, 3.0, n + 1)
-    vv, uu = np.meshgrid(xs, xs, indexing="ij")
-    verts = np.stack(
-        [uu.ravel(), vv.ravel(), np.zeros((n + 1) ** 2)], axis=1
-    ).astype(np.float32)
-    tris = []
-    for i in range(n):
-        for j in range(n):
-            a = i * (n + 1) + j
-            tris.append([a, a + 1, a + n + 1])
-            tris.append([a + 1, a + n + 2, a + n + 1])
-    return verts, np.array(tris, np.int32)

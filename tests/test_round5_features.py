@@ -1,9 +1,5 @@
-"""Round-5 feature tests: XLA-side deposit pass, entry-state aux input,
-the precand deposit-wake inflation (ADVICE r4 medium), knobs plumbing, and
-the fused ordered/precand path under shard_map at >= 8 chunks.
-
-All fused-kernel runs use interpret mode on CPU (the real-TPU runs are
-validated by bench.py's physics parity)."""
+"""Round-5 feature tests: knobs plumbing, and the nearest-hit kernel
+(interpret mode on the CPU) under shard_map at >= 8 chunks."""
 
 import dataclasses
 import os
@@ -11,19 +7,17 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 import viennaray_tpu as vrt
 from viennaray_tpu.config import (
     BoundaryCondition,
-    ReflectionKind,
     TraceConfig,
     TraceDirection,
 )
 from viennaray_tpu.io import fixtures
 from viennaray_tpu.trace.kernel import EnvKnobs
 
-from test_fused_round2 import _force_fused, _trace_once, _trench_tri, cfg2d  # noqa: F401
+from test_fused_round2 import _use_kernel
 
 
 def _cfg3d():
@@ -45,7 +39,7 @@ def _trench_geo(gd=0.4):
 
 def test_env_knobs_hashable_and_static():
     """EnvKnobs must be hashable (it is a jit static argument) and reflect
-    the environment at resolution time — the ADVICE r4 stale-compile fix."""
+    the environment at resolution time, so a changed knob recompiles."""
     k = EnvKnobs.from_env()
     hash(k)  # hashable
     assert k == EnvKnobs.from_env()
@@ -61,213 +55,16 @@ def test_env_knobs_hashable_and_static():
             os.environ["VIENNARAY_TPU_PERMUTE"] = old
 
 
-def test_xla_deposit_matches_kernel_disk(monkeypatch):
-    """deposit='xla' (kernel returns hit lane + weight; deposits land via
-    the neighbor lists + histogram on the XLA side) must reproduce the
-    in-kernel deposit pass up to f32 summation order."""
-    geo = _trench_geo(0.4)
-    p = vrt.DiffuseParticle(0.1)
-    cfg = _cfg3d()
-    _force_fused(monkeypatch, True)
-    monkeypatch.setenv("VIENNARAY_TPU_DEPOSIT", "kernel")
-    f_k, c_k = _trace_once(geo, "disk", cfg, p)
-    monkeypatch.setenv("VIENNARAY_TPU_DEPOSIT", "xla")
-    f_x, c_x = _trace_once(geo, "disk", cfg, p)
-    assert f_k.sum() > 0
-    rel = np.linalg.norm(f_x - f_k) / np.linalg.norm(f_k)
-    assert rel < 1e-5, rel
-    # identical RNG stream and hit selection -> identical event counts
-    assert c_k.geometry_hits == c_x.geometry_hits
-    assert c_k.boundary_hits == c_x.boundary_hits
-    # the in-kernel deposit pass never ran
-    assert int(c_x.chunks_deposited) == 0
-    assert int(c_k.chunks_deposited) > 0
-
-
-def test_xla_deposit_matches_kernel_triangle(monkeypatch):
-    """Triangle single-hit deposits via the XLA histogram."""
-    geo = _trench_tri()
-    p = vrt.DiffuseParticle(0.2)
-    cfg = dataclasses.replace(
-        _cfg3d(), dim=2, source_direction=TraceDirection.POS_Y
-    )
-    _force_fused(monkeypatch, True)
-    monkeypatch.setenv("VIENNARAY_TPU_DEPOSIT", "kernel")
-    f_k, c_k = _trace_once(geo, "triangle", cfg, p)
-    monkeypatch.setenv("VIENNARAY_TPU_DEPOSIT", "xla")
-    f_x, c_x = _trace_once(geo, "triangle", cfg, p)
-    assert f_k.sum() > 0
-    # single-hit deposits: same hits, same weights, different accumulation
-    # structure only
-    np.testing.assert_allclose(f_x, f_k, rtol=1e-6, atol=1e-4)
-    assert c_k.geometry_hits == c_x.geometry_hits
-
-
-def test_xla_deposit_matches_kernel_line(monkeypatch):
-    """2D line single-hit deposits via the XLA histogram."""
-    from viennaray_tpu.geometry.line_geometry import LineGeometry
-
-    seg = 0.2
-    xs = np.arange(-2.0, 2.0 + 1e-9, seg, dtype=np.float32)
-    nodes = np.stack([xs, np.zeros_like(xs), np.zeros_like(xs)], axis=1)
-    lines = np.stack(
-        [np.arange(len(xs) - 1), np.arange(1, len(xs))], axis=1
-    ).astype(np.uint32)
-    mesh = vrt.LineMesh(nodes=nodes, lines=lines, grid_delta=seg)
-    geo = LineGeometry.from_mesh(mesh)
-    p = vrt.DiffuseParticle(0.3)
-    cfg = dataclasses.replace(
-        _cfg3d(), dim=2, source_direction=TraceDirection.POS_Y
-    )
-    _force_fused(monkeypatch, True)
-    monkeypatch.setenv("VIENNARAY_TPU_DEPOSIT", "kernel")
-    f_k, c_k = _trace_once(geo, "line", cfg, p)
-    monkeypatch.setenv("VIENNARAY_TPU_DEPOSIT", "xla")
-    f_x, c_x = _trace_once(geo, "line", cfg, p)
-    assert f_k.sum() > 0
-    np.testing.assert_allclose(f_x, f_k, rtol=1e-6, atol=1e-4)
-    assert c_k.geometry_hits == c_x.geometry_hits
-
-
-def test_xla_deposit_streamed_disk(monkeypatch):
-    """The HBM-streamed ordered path with deposit='xla' (the disk1m
-    configuration: no deposit DMA slots at all) must match the in-kernel
-    streamed deposit."""
-    from viennaray_tpu.ops import pallas_bounce
-
-    geo = _trench_geo(0.3)
-    assert geo.soa_chunk_bbs.shape[0] >= 2
-    p = vrt.DiffuseParticle(0.1)
-    cfg = _cfg3d()
-    _force_fused(monkeypatch, True)
-    # force the streamed path by shrinking the VMEM budget below the SoA
-    soa_bytes = geo.prims_soa.shape[0] * geo.prims_soa.shape[1] * 4
-    monkeypatch.setattr(pallas_bounce, "SOA_VMEM_BUDGET", soa_bytes - 1)
-    monkeypatch.setenv("VIENNARAY_TPU_DEPOSIT", "kernel")
-    f_k, c_k = _trace_once(geo, "disk", cfg, p, R=1024)
-    monkeypatch.setenv("VIENNARAY_TPU_DEPOSIT", "xla")
-    f_x, c_x = _trace_once(geo, "disk", cfg, p, R=1024)
-    assert f_k.sum() > 0
-    rel = np.linalg.norm(f_x - f_k) / np.linalg.norm(f_k)
-    assert rel < 1e-5, rel
-    assert c_k.geometry_hits == c_x.geometry_hits
-
-
-def test_entry_aux_bitwise(monkeypatch):
-    """entry_aux feeds the XLA-computed [tmin0, t_w1, t_w2] into the kernel
-    in place of the in-kernel twin (same arithmetic op-for-op) — flux must
-    be BITWISE unchanged in interpret mode."""
-    geo = _trench_geo(0.4)
-    p = vrt.DiffuseParticle(0.1)
-    cfg = _cfg3d()
-    _force_fused(monkeypatch, True)
-    monkeypatch.setenv("VIENNARAY_TPU_ENTRY_AUX", "0")
-    f_off, c_off = _trace_once(geo, "disk", cfg, p)
-    monkeypatch.setenv("VIENNARAY_TPU_ENTRY_AUX", "1")
-    f_on, c_on = _trace_once(geo, "disk", cfg, p)
-    assert f_off.sum() > 0
-    np.testing.assert_array_equal(f_on, f_off)
-    assert c_off.geometry_hits == c_on.geometry_hits
-
-
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_precand_bitwise_vs_dynamic_wake(monkeypatch, seed):
-    """The documented precand invariant (and the ADVICE r4 deposit-wake
-    regression guard): XLA-side candidate lists must leave the flux BITWISE
-    identical to the in-kernel dynamic wake tests — including every
-    neighbor-model deposit near wall crossings. Many chunks (pt=128) so the
-    candidate machinery actually engages."""
-    monkeypatch.setenv("VIENNARAY_TPU_PT", "128")
-    gd = [0.2, 0.22, 0.25][seed]
-    geo = _trench_geo(gd)
-    assert geo.soa_chunk_bbs.shape[0] >= 8
-    p = vrt.DiffuseParticle(0.15)
-    cfg = dataclasses.replace(_cfg3d(), rng_seed=seed + 3)
-    _force_fused(monkeypatch, True)
-    monkeypatch.setenv("VIENNARAY_TPU_PRECAND", "0")
-    f_dyn, c_dyn = _trace_once(geo, "disk", cfg, p, seed=seed)
-    monkeypatch.setenv("VIENNARAY_TPU_PRECAND", "1")
-    f_pre, c_pre = _trace_once(geo, "disk", cfg, p, seed=seed)
-    assert f_dyn.sum() > 0
-    np.testing.assert_array_equal(f_pre, f_dyn)
-    assert c_dyn.geometry_hits == c_pre.geometry_hits
-
-
-def test_precand_deposit_wake_near_wall(monkeypatch):
-    """Targeted ADVICE r4 scenario: a hit right in front of a wall crossing
-    (tight tmin0 bound) whose neighbor-ball deposits reach into ANOTHER
-    chunk that the un-inflated slab test would exclude. With the
-    nbr + 2*r_over inflation the deposit must land; flux stays bitwise
-    equal to the dynamic-wake path."""
-    from viennaray_tpu.ops import pallas_bounce
-
-    # two chunks of 128 disks along x; the ray flies +x toward the wall at
-    # x = hi1, hitting the last disk of chunk 0 just before the wall; its
-    # neighbors continue into chunk 1
-    n = 256
-    gd = 0.1
-    r = gd * 0.87
-    pts = np.zeros((n, 3), np.float32)
-    pts[:, 0] = np.arange(n) * gd * 0.5  # overlapping disks, 2r ball spans 4
-    pts[:, 2] = 0.0
-    nrm = np.tile(np.asarray([[-1.0, 0.0, 0.0]], np.float32), (n, 1))
-    monkeypatch.setenv("VIENNARAY_TPU_PT", "128")
-    geo = vrt.DiskGeometry.build(pts, nrm, gd, dim=3, disk_radius=r)
-    assert geo.soa_chunk_bbs.shape[0] == 2
-
-    R = 256
-    # ray k starts just before disk k and flies +x: every disk (including
-    # the ones flanking each chunk boundary) becomes a hit whose
-    # neighbor-ball deposits cross into the adjacent chunk; the +x wall
-    # sits 2.5*gd past the LAST disk, so the rays near it have a tight
-    # tmin0 bound with deposit-reachable prims right at it
-    xs = np.arange(R, dtype=np.float32) * gd * 0.5 - 0.02
-    org = jnp.stack(
-        [jnp.asarray(xs), jnp.zeros(R), jnp.zeros(R)], axis=1
-    ).astype(jnp.float32)
-    dirn = jnp.tile(jnp.asarray([[1.0, 0.0, 0.0]], jnp.float32), (R, 1))
-    w = jnp.ones((R, 1), jnp.float32)
-    flags = jnp.concatenate(
-        [jnp.ones((R, 1)), jnp.zeros((R, 3))], axis=1
-    ).astype(jnp.float32)
-    uni = jax.random.uniform(jax.random.PRNGKey(2), (R, 3), jnp.float32)
-    nbr2 = float((2.0 * r) ** 2)
-    walls = jnp.asarray(
-        [[-1.5, float(xs[-1]) + 2.52 * gd, -1.5, 1.5, -1.0, 1.0,
-          1.1 * gd, nbr2]],
-        jnp.float32,
-    )
-    stick = jnp.asarray([[0.1]], jnp.float32)
-    kw = dict(
-        t_near=1e-4, dim=3, first_dir=0, second_dir=1, ray_axis=2, pt=128,
-        bc1=BoundaryCondition.REFLECTIVE, bc2=BoundaryCondition.REFLECTIVE,
-        refl_kind=ReflectionKind.DIFFUSE, interpret=True, n_sub=1,
-        ordered=True,
-    )
-    args = (org, dirn, w, w, flags, uni, geo.prims_soa, geo.soa_chunk_bbs,
-            walls, stick)
-    out_dyn = pallas_bounce.fused_bounce(*args, precand=False, **kw)
-    out_pre = pallas_bounce.fused_bounce(*args, precand=True, **kw)
-    flux_dyn = np.asarray(out_dyn[5])
-    flux_pre = np.asarray(out_pre[5])
-    assert flux_dyn.sum() > 0
-    # deposits reach both chunks (the cross-chunk neighbor ball)
-    assert (flux_dyn.sum(axis=1) > 0).sum() == 2, flux_dyn.sum(axis=1)
-    np.testing.assert_array_equal(flux_pre, flux_dyn)
-
-
 def test_fused_sharded_many_chunks(monkeypatch):
-    """VERDICT r4 item 5: the fused ordered+precand machinery must run
-    INSIDE shard_map (geometry >= 8 chunks) and reproduce the unsharded
-    flux (trace_sharded psums per-shard flux; device count only changes
-    reduction order)."""
+    """The nearest-hit kernel runs INSIDE shard_map (geometry >= 8 chunks)
+    and reproduces the unsharded flux (trace_sharded psums per-shard flux;
+    device count only changes reduction order)."""
     from viennaray_tpu.parallel.mesh import make_ray_mesh, trace_sharded
     from viennaray_tpu.config import adjust_bounding_box, get_trace_settings
     from viennaray_tpu.physics.source import RandomSource
 
     assert len(jax.devices()) == 8, "conftest must provide 8 CPU devices"
-    monkeypatch.setenv("VIENNARAY_TPU_PT", "128")
-    _force_fused(monkeypatch, True)
+    _use_kernel(monkeypatch, True)
     geo = _trench_geo(0.25)
     assert geo.soa_chunk_bbs.shape[0] >= 8
     particle = vrt.DiffuseParticle(0.1)

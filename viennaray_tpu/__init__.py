@@ -1,11 +1,11 @@
-"""viennaray_tpu: a TPU-native differentiable Monte Carlo flux tracer.
+"""viennaray_tpu: a differentiable Monte Carlo flux tracer on accelerators.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of ViennaRay
 (semiconductor topography flux simulation): power-cosine sources, disk /
 triangle / line geometries, diffuse / specular / coned-cosine reflections with
 sticking probabilities, reflective / periodic / ignore boundaries, gas-phase
 scattering, flux accumulation with exact area normalization and neighborhood
-smoothing — plus what the reference never had: multi-chip ray sharding over
+smoothing — plus what the reference never had: multi-device ray sharding over
 ``jax.sharding.Mesh`` and gradients of flux w.r.t. geometry and sticking.
 
 See SURVEY.md for the structural map of the reference this build follows.
@@ -14,43 +14,23 @@ See SURVEY.md for the structural map of the reference this build follows.
 import os as _os
 
 # Persistent XLA compilation cache: trace kernels are large staged loops and
-# recompiling them per process dominates small runs. Opt out with
-# VIENNARAY_TPU_NO_CACHE=1.
-if not _os.environ.get("VIENNARAY_TPU_NO_CACHE"):
+# recompiling them per process dominates small runs. JAX itself honours
+# JAX_COMPILATION_CACHE_DIR; without it the cache goes to one fixed directory
+# in the checkout (the path is part of the cache key, so it must not move).
+# Opt out with VIENNARAY_TPU_NO_CACHE=1.
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache",
+)
+if not _os.environ.get("VIENNARAY_TPU_NO_CACHE") and not _os.environ.get(
+    "JAX_COMPILATION_CACHE_DIR"
+):
     import jax as _jax
 
-    def _cpu_fingerprint():
-        # The cache home may persist across machines with different CPU
-        # microarchitectures; XLA:CPU AOT entries compiled elsewhere then
-        # load with mismatched machine features (observed: cpu_aot_loader
-        # "+prefer-no-gather not supported ... could lead to SIGILL").
-        # Key the cache directory by the host's feature set so each
-        # microarch gets its own entries. TPU entries are small relative to
-        # the cost of one bad CPU load.
-        try:
-            with open("/proc/cpuinfo") as f:
-                for line in f:
-                    if line.startswith("flags"):
-                        import hashlib
-
-                        return hashlib.sha1(
-                            line.encode()
-                        ).hexdigest()[:12]
-        except OSError:
-            pass
-        return "generic"
-
-    _cache_dir = _os.environ.get(
-        "VIENNARAY_TPU_CACHE_DIR",
-        _os.path.expanduser(
-            f"~/.cache/viennaray_tpu_jax/{_cpu_fingerprint()}"
-        ),
-    )
     try:
-        _os.makedirs(_cache_dir, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # cache is best-effort
+        _os.makedirs(CACHE_DIR, exist_ok=True)
+        _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+    except OSError:  # read-only checkout: run without the cache
         pass
 
 from .config import (

@@ -1,6 +1,6 @@
 """Trace configuration and enums.
 
-TPU-native analog of the reference's runtime configuration:
+Analog of the reference's runtime configuration:
 
 - ``TraceDirection``, ``NormalizationType``  (ref: rayUtil.hpp:38-47)
 - ``BoundaryCondition``                      (ref: rayBoundary.hpp:10-14)
@@ -50,7 +50,7 @@ class ReflectionKind(enum.IntEnum):
 
     The reference dispatches through virtual ``surfaceReflection``
     (rayParticle.hpp:43-48) or a GPU direct-callable table
-    (raygCallableConfig.hpp); on TPU the behavior is a jit-static enum that
+    (raygCallableConfig.hpp); here the behavior is a jit-static enum that
     selects a vectorized sampling function.
     """
 
@@ -117,8 +117,9 @@ class TraceConfig:
     renew_weight_frac: float = 0.3
     t_near: float = 1e-4
     use_wdist: bool = False  # 1/distance multi-hit weighting (VIENNARAY_USE_WDIST)
-    # Use the uniform-grid DDA only above this primitive count — below it the
-    # chunked MXU brute force is faster than gather-bound traversal on TPU.
+    # Where the fused nearest-hit kernel is not chosen (ops/hit_kernel.py),
+    # use the uniform-grid DDA only above this primitive count and the
+    # chunked brute force below it.
     grid_min_prims: int = 8192
     # Russian roulette on/off. The unbiased weight renewal
     # (rayTraceKernel.hpp:435-460) zeroes the gradient of renewed weights, so

@@ -2,7 +2,7 @@
 
 Ports of:
 - ``TracingData``  (rayTracingData.hpp) — named scalar/vector channels with
-  SUM/APPEND/AVERAGE merge semantics. On TPU the per-thread copies + post-hoc
+  SUM/APPEND/AVERAGE merge semantics. On device the per-thread copies + post-hoc
   merge (rayTraceKernel.hpp:69-82,343-407) become per-shard accumulators
   reduced with ``psum``; this host-side container keeps the label/merge
   bookkeeping and accumulates across ``apply()`` runs.
@@ -41,14 +41,6 @@ class TraceInfo:
     time: float = 0.0
     warning: bool = False
     error: bool = False
-    # fused-megakernel traversal diagnostics (BVH nodes-visited analog):
-    # geometry chunks whose pass-1 sweep / deposit-pass wake test fired,
-    # summed over ray tiles and bounces; zero on the unfused path
-    chunks_swept: int = 0
-    chunks_deposited: int = 0
-    # tile-sub-bounces executed by the fused megakernel (the denominator
-    # for per-tile-bounce sweep/deposit wake attribution)
-    tile_bounces: int = 0
 
 
 class TracingData:

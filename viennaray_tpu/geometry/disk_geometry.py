@@ -1,7 +1,7 @@
 """Device-resident oriented-disk geometry.
 
-TPU-native analog of ``GeometryDisk`` (rayGeometryDisk.hpp): instead of Embree
-buffers, the point cloud lives as jnp arrays in HBM plus a padded neighbor
+Device analog of ``GeometryDisk`` (rayGeometryDisk.hpp): instead of Embree
+buffers, the point cloud lives as jnp arrays in device memory plus a padded neighbor
 matrix (for the disk multi-hit semantics and flux smoothing) and precomputed
 clipped areas. Built on the host once per geometry via ``DiskGeometry.build``.
 """
@@ -12,7 +12,7 @@ from typing import Optional
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree as struct
 
 from ..config import BoundaryCondition, disk_factor
 from . import disk_area, grid_accel, neighborhood
@@ -47,17 +47,14 @@ class DiskGeometry:
     areas: jnp.ndarray
     bbox: jnp.ndarray
     grid: Optional[GridData] = None
-    # SoA packing (8, Npad) for the fused Pallas nearest-hit kernel, spatially
-    # sorted source-side-first; soa_perm maps sorted->original ids and
-    # soa_chunk_bbs carries per-chunk AABBs for the slab-skip test
+    # SoA packing (8, Npad) for the fused nearest-hit kernel (ops/soa.py),
+    # spatially sorted source-side-first; soa_perm maps sorted->original ids
+    # and soa_chunk_bbs carries per-chunk AABBs for the slab-skip test
     prims_soa: Optional[jnp.ndarray] = None
     soa_perm: Optional[jnp.ndarray] = None
     soa_chunk_bbs: Optional[jnp.ndarray] = None
-    # inverse of soa_perm restricted to real prims: original id -> sorted
-    # position (< num_primitives); used to unpermute in-kernel flux
-    soa_inv_perm: Optional[jnp.ndarray] = None
     # per-prim neighbor records (N, K*8): [center(3) normal(3) radius valid]*K
-    # -> ONE contiguous gather per hit instead of K small ones (measured 5x)
+    # -> ONE contiguous gather per hit instead of K small ones
     neighbor_pack: Optional[jnp.ndarray] = None
     dim: int = struct.field(pytree_node=False, default=3)
     grid_delta: float = struct.field(pytree_node=False, default=0.0)
@@ -87,10 +84,8 @@ class DiskGeometry:
         (ref: rayGeometryDisk.hpp:49-51,68-69).
 
         ``pack_neighbors=False`` skips the (N, K*8) packed neighbor records
-        (~600 MB host RAM at 1M prims). Only the UNFUSED trace path consumes
-        them — the fused megakernel re-derives the neighbor set in-kernel —
-        so Embree-scale geometries should build with it off (and usually
-        ``accel=False`` too; the streamed megakernel replaces the grid DDA).
+        (~600 MB host RAM at 1M prims); the trace then gathers the neighbor
+        fields separately. ``accel=False`` skips the uniform grid.
         """
         points = np.asarray(points, np.float32).reshape(-1, 3).copy()
         normals = np.asarray(normals, np.float32).reshape(-1, 3).copy()
@@ -132,15 +127,13 @@ class DiskGeometry:
                 dims=g.dims,
             )
 
-        from ..ops.pallas_intersect import pack_disk_prims
+        from ..ops.soa import pack_disk_prims
 
         sort_axis = 2 if dim == 3 else 1
         soa, soa_perm, soa_bbs = pack_disk_prims(
             points, normals, radii_arr, sort_axis=sort_axis
         )
         prims_soa = jnp.asarray(soa)
-        inv_perm = np.zeros((n,), np.int32)
-        inv_perm[soa_perm[:n]] = np.arange(n, dtype=np.int32)
 
         pack = None
         if pack_neighbors:
@@ -164,7 +157,6 @@ class DiskGeometry:
             prims_soa=prims_soa,
             soa_perm=jnp.asarray(soa_perm),
             soa_chunk_bbs=jnp.asarray(soa_bbs),
-            soa_inv_perm=jnp.asarray(inv_perm),
             neighbor_pack=None if pack is None else jnp.asarray(
                 pack.reshape(n, -1)
             ),

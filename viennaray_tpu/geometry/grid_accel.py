@@ -1,6 +1,6 @@
 """Uniform-grid acceleration structure (host build).
 
-The TPU-native replacement for Embree's BVH (SURVEY §7 design stance):
+The accelerator replacement for Embree's BVH (SURVEY §7 design stance):
 level-set-derived disk clouds are near-uniform at gridDelta spacing, so a
 regular cell grid with a fixed max-prims-per-cell gives static shapes and
 regular gathers — what the hardware wants. Each primitive is inserted into

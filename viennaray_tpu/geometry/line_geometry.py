@@ -13,7 +13,7 @@ from typing import Optional
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree as struct
 
 from .mesh import LineMesh, compute_bounding_box
 
@@ -30,11 +30,6 @@ class LineGeometry:
     material_ids: jnp.ndarray
     bbox: jnp.ndarray
     grid: Optional[object] = None  # reserved; line counts are small
-    # SoA packing for the fused megakernel (6, Npad) + chunk AABBs + perms
-    prims_soa: Optional[jnp.ndarray] = None
-    soa_perm: Optional[jnp.ndarray] = None
-    soa_chunk_bbs: Optional[jnp.ndarray] = None
-    soa_inv_perm: Optional[jnp.ndarray] = None
     dim: int = struct.field(pytree_node=False, default=2)
     grid_delta: float = struct.field(pytree_node=False, default=0.0)
 
@@ -64,11 +59,6 @@ class LineGeometry:
         bbox = compute_bounding_box(np.concatenate([p0, p1]))
         bbox[:, 2] = 0.0
 
-        from ..ops.pallas_intersect import pack_line_prims
-
-        soa, soa_perm, soa_bbs = pack_line_prims(p0, p1, mesh.normals)
-        inv_perm = np.zeros((n,), np.int32)
-        inv_perm[soa_perm[:n]] = np.arange(n, dtype=np.int32)
         return cls(
             p0=jnp.asarray(p0, dtype),
             p1=jnp.asarray(p1, dtype),
@@ -76,9 +66,5 @@ class LineGeometry:
             areas=jnp.asarray(lengths, dtype),
             material_ids=jnp.asarray(mat),
             bbox=jnp.asarray(bbox, dtype),
-            prims_soa=jnp.asarray(soa),
-            soa_perm=jnp.asarray(soa_perm),
-            soa_chunk_bbs=jnp.asarray(soa_bbs),
-            soa_inv_perm=jnp.asarray(inv_perm),
             grid_delta=float(mesh.grid_delta),
         )

@@ -2,7 +2,7 @@
 
 The reference builds ragged per-point neighbor lists with a median-split
 divide & conquer in 3D and a hash grid in 2D (rayPointNeighborhood.hpp). On
-TPU the consumer (disk multi-hit, flux smoothing) needs static shapes, so we
+the device the consumer (disk multi-hit, flux smoothing) needs static shapes, so we
 build a uniform-grid neighborhood on the host (numpy, O(N) for level-set-
 derived point clouds) and emit a padded ``(N, K)`` int32 matrix where K is the
 observed max degree and empty slots are ``-1``.

@@ -1,7 +1,7 @@
 """Device-resident triangle geometry.
 
-TPU-native analog of ``GeometryTriangle`` (rayGeometryTriangle.hpp): vertex
-and index arrays in HBM with precomputed per-triangle normals and areas. 2D
+Device analog of ``GeometryTriangle`` (rayGeometryTriangle.hpp): vertex
+and index arrays in device memory with precomputed per-triangle normals and areas. 2D
 line meshes are extruded to triangle pairs up front
 (ref: rayTraceTriangle.hpp:76-81).
 """
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree as struct
 
 from . import grid_accel
 from .disk_geometry import GridData
@@ -36,9 +36,6 @@ class TriangleGeometry:
     prims_soa: jnp.ndarray = None
     soa_perm: jnp.ndarray = None
     soa_chunk_bbs: jnp.ndarray = None
-    # original id -> sorted position (< num_primitives); used to unpermute
-    # in-kernel flux from the fused megakernel
-    soa_inv_perm: jnp.ndarray = None
     dim: int = struct.field(pytree_node=False, default=3)
     grid_delta: float = struct.field(pytree_node=False, default=0.0)
 
@@ -93,14 +90,12 @@ class TriangleGeometry:
         )
         bbox = compute_bounding_box(vertices)
 
-        from ..ops.pallas_intersect import pack_triangle_prims
+        from ..ops.soa import pack_triangle_prims
 
         sort_axis = 2 if dim == 3 else 1
         soa, soa_perm, soa_bbs = pack_triangle_prims(
             vertices, triangles, normals=normals, sort_axis=sort_axis
         )
-        inv_perm = np.zeros((n,), np.int32)
-        inv_perm[soa_perm[:n]] = np.arange(n, dtype=np.int32)
 
         grid = None
         if accel and n > 0:
@@ -123,7 +118,6 @@ class TriangleGeometry:
             prims_soa=jnp.asarray(soa),
             soa_perm=jnp.asarray(soa_perm),
             soa_chunk_bbs=jnp.asarray(soa_bbs),
-            soa_inv_perm=jnp.asarray(inv_perm),
             dim=dim,
             grid_delta=float(grid_delta),
         )

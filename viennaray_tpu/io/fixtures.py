@@ -183,3 +183,38 @@ def create_trench_mesh_3d(grid_delta=0.5, extent=5.0, trench_width=4.0,
           n_w, ny)
     return (np.asarray(verts, np.float32),
             np.asarray(tris, np.int32))
+
+
+def create_trench_lines_2d(grid_delta=0.1, extent=5.0, trench_width=4.0,
+                           trench_depth=4.0):
+    """Synthetic 2D trench POLYLINE (x lateral, y vertical): the line-mesh
+    analog of ``create_trench_grid_2d``, one connected polyline from the
+    left shelf down the left wall, across the bottom, up the right wall and
+    along the right shelf. Segments are ~``grid_delta`` long; traversal runs
+    left to right so the left-hand normals (LineMesh convention, -dy, dx)
+    point up on the shelves and bottom and into the trench on the walls.
+    Returns (nodes (V, 3) f32 with z = 0, lines (V-1, 2) i32).
+    """
+    half_w = trench_width / 2.0
+
+    def steps(a, b):
+        n = max(1, int(round(abs(b - a) / grid_delta)))
+        return np.linspace(a, b, n + 1)
+
+    xs_l = steps(-extent, -half_w)
+    ys_w = steps(0.0, -trench_depth)
+    xs_b = steps(-half_w, half_w)
+    xs_r = steps(half_w, extent)
+    pts = (
+        [(x, 0.0) for x in xs_l]
+        + [(-half_w, y) for y in ys_w[1:]]
+        + [(x, -trench_depth) for x in xs_b[1:]]
+        + [(half_w, y) for y in ys_w[::-1][1:]]
+        + [(x, 0.0) for x in xs_r[1:]]
+    )
+    nodes = np.zeros((len(pts), 3), np.float32)
+    nodes[:, :2] = np.asarray(pts, np.float32)
+    lines = np.stack(
+        [np.arange(len(pts) - 1), np.arange(1, len(pts))], axis=1
+    ).astype(np.int32)
+    return nodes, lines

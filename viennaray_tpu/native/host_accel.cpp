@@ -1,6 +1,6 @@
 // Native host-side geometry preprocessing.
 //
-// TPU-native counterpart of the reference's C++ host structures: the point
+// Counterpart of the reference's C++ host structures: the point
 // neighborhood build (rayPointNeighborhood.hpp — median-split / hash grid)
 // and the acceleration-grid insertion. Both are O(N) passes that dominate
 // geometry setup for large level-set clouds (1e6+ points), so like the

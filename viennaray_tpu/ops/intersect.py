@@ -1,13 +1,14 @@
 """Batched ray/primitive intersection.
 
-TPU-native replacement for Embree BVH traversal (rayTraceKernel.hpp:163-167)
+Plain-XLA replacement for Embree BVH traversal (rayTraceKernel.hpp:163-167)
 and the OptiX analytic primitive programs (gpu/pipelines/*.cu): all active
 rays test primitives in parallel as chunked ``[rays, prims]`` tiles. The inner
 products ``dot(n_j, org_i)``, ``dot(n_j, dir_i)``, ``dot(c_j, org_i)``,
-``dot(c_j, dir_i)`` are (R,3)x(3,P) matmuls, which XLA maps onto the MXU; the
-remaining work is elementwise on the VPU. A ``fori_loop`` over prim chunks
-keeps the live tile in VMEM-sized pieces and maintains a running
-(t_min, argmin) — the wavefront analog of "find the closest hit".
+``dot(c_j, dir_i)`` are (R,3)x(3,P) matmuls; the remaining work is
+elementwise. A ``fori_loop`` over prim chunks bounds the live tile and
+maintains a running (t_min, argmin) — the wavefront analog of "find the
+closest hit". This is the reference the fused kernel (ops/hit_kernel.py) is
+checked against, and the path on backends without that kernel.
 
 Semantics mirrored from the reference:
 - disks are double-sided planes clipped to the radius (backface handling
@@ -30,9 +31,9 @@ BIG = np.float32(3.4e38)
 
 
 def _mm(a, b):
-    """f32-accurate matmul: TPU MXU defaults to bf16 inputs, which is far too
-    coarse for hit tests (disk radii ~1e-1 vs bf16 coordinate error ~1e-2);
-    HIGHEST requests the multi-pass f32 algorithm."""
+    """f32-accurate matmul: a default-precision f32 product may run in
+    bf16 or TF32 on an accelerator, far too coarse for hit tests (disk radii
+    ~1e-1 vs a coordinate error ~1e-2); HIGHEST asks for full f32."""
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
@@ -63,12 +64,12 @@ def disk_nearest_hit(org, direction, points, normals, radii, t_near, chunk=1024)
         ndc = jax.lax.dynamic_slice_in_dim(n_dot_c, start, chunk)
         cc2 = jax.lax.dynamic_slice_in_dim(c2, start, chunk)
 
-        denom = _mm(direction, n.T)  # (R, P)  MXU
-        n_dot_o = _mm(org, n.T)  # (R, P)  MXU
+        denom = _mm(direction, n.T)  # (R, P)
+        n_dot_o = _mm(org, n.T)  # (R, P)
         t = (ndc[None, :] - n_dot_o) / jnp.where(denom == 0, 1e-30, denom)
 
-        o_dot_c = _mm(org, p.T)  # (R, P)  MXU
-        d_dot_c = _mm(direction, p.T)  # (R, P)  MXU
+        o_dot_c = _mm(org, p.T)  # (R, P)
+        d_dot_c = _mm(direction, p.T)  # (R, P)
         dist2 = (
             org2[:, None]
             - 2.0 * o_dot_c
@@ -229,11 +230,12 @@ def line_nearest_hit(org, direction, p0, p1, t_near, chunk=1024):
     return t_min, arg_min, hit
 
 
+@jax.named_scope("neighbors")
 def check_neighbors_packed(org, direction, rec):
     """Neighbor re-test over a pre-packed record gather.
 
     rec: (R, K, 8) rows [center(3) normal(3) radius valid] gathered in ONE
-    contiguous fetch (5x faster than per-array gathers on TPU). Semantics
+    contiguous fetch instead of four per-array gathers. Semantics
     identical to ``check_local_intersection``.
     Returns (valid (R, K) bool, distance (R, K)).
     """
@@ -271,6 +273,7 @@ def check_local_intersection(org, direction, centers, normals, radii):
     return valid, dist
 
 
+@jax.named_scope("deposit")
 def disk_window_deposit(org, direction, points, normals, radii, tlim, wdep,
                         t_near, chunk=1024):
     """Candidate-window flux deposits (GPU ``flux_model="window"`` contract,

@@ -1,6 +1,6 @@
 """Batched random sampling primitives.
 
-TPU-native equivalents of the reference's per-ray samplers:
+Batched equivalents of the reference's per-ray samplers:
 
 - ``unit_sphere``       (ref: rayUtil.hpp:266-283, Marsaglia rejection) — here
   via the exact polar method (identical distribution, no rejection, fully

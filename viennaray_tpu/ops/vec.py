@@ -1,7 +1,7 @@
 """Batched 3-vector math on ``(..., 3)`` arrays.
 
-TPU-native replacement for the reference's scalar ``Vec3D`` helpers
-(ViennaCore vcVectorType.hpp, used throughout /root/reference). Every function
+Batched replacement for the reference's scalar ``Vec3D`` helpers
+(ViennaCore vcVectorType.hpp, used throughout the reference). Every function
 is shape-polymorphic over leading batch axes and safe under jit/vmap.
 """
 

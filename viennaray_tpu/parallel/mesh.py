@@ -2,13 +2,13 @@
 
 The reference's only parallelism is OpenMP threads over rays with per-thread
 flux copies merged post-hoc (rayTraceKernel.hpp:87-117, 343-407) and
-single-GPU launch grids. The TPU-native replacement (SURVEY §2.9, §5.8):
+single-GPU launch grids. The replacement here (SURVEY §2.9, §5.8):
 
 - a 1-D ``jax.sharding.Mesh`` over axis ``"rays"``;
 - ``jax.shard_map``-wrapped trace step: each device traces its ray sub-batch
-  against replicated geometry (small — point clouds fit HBM easily);
+  against replicated geometry (small — point clouds fit device memory easily);
 - per-shard RNG streams via ``fold_in(batch_key, axis_index)``;
-- flux and counters reduced with ``psum`` over ICI — the collective analog of
+- flux and counters reduced with ``psum`` across devices — the collective analog of
   the reference's thread-local merge.
 
 For multi-host runs call ``initialize_distributed()`` first
@@ -109,8 +109,8 @@ def trace_sharded(
     ``config.ray_batch_size * mesh_size`` rays and accumulates flux.
 
     Determinism: fixed (seed, ray_batch_size, device count) => bitwise
-    reproducible flux (psum reduction order is fixed; scatter-add within a
-    shard is deterministic on TPU).
+    reproducible flux (psum reduction order is fixed; the deposit within a
+    shard sums in an order fixed by the data, ops/deposit.py).
     """
     n_dev = mesh.devices.size
     per_batch = config.ray_batch_size * n_dev

@@ -1,7 +1,7 @@
 """Particle models.
 
 The reference's CRTP virtual-dispatch particles (rayParticle.hpp:21-124) and
-the GPU particle data struct (rayParticle.hpp:206-220) collapse on TPU into a
+the GPU particle data struct (rayParticle.hpp:206-220) collapse here into a
 single pytree dataclass: continuous parameters (sticking, per-material sticking
 table, cosine exponent, cone angle) are arrays — and therefore differentiable —
 while the behavioral choice (reflection model) is a jit-static enum.
@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import pytree as struct
 
 from ..config import ReflectionKind
 from . import reflection
@@ -38,7 +38,7 @@ class Particle:
         (ref: getMeanFreePath, rayParticle.hpp:73).
       reflection_kind: static reflection model selector.
       direction: optional fixed initial direction (3,) overriding the
-        source's sampled direction for every ray — the TPU analog of
+        source's sampled direction for every ray — the analog of
         ``initNewWithDirection`` returning a nonzero vector
         (rayParticle.hpp:31,92) and the GPU particle struct's fixed
         ``direction`` field (rayParticle.hpp:206-220). Normalized (and

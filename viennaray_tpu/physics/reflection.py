@@ -1,6 +1,6 @@
 """Batched surface reflection models.
 
-TPU-native port of rayReflection.hpp: every function maps a batch of
+Batched port of rayReflection.hpp: every function maps a batch of
 (ray_dir, normal) pairs to new unit directions, fully vectorized, keyed by a
 single PRNG key (internally split).
 """

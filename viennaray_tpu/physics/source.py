@@ -1,6 +1,6 @@
 """Batched ray sources.
 
-TPU-native ports of the reference sources:
+Batched ports of the reference sources:
 
 - ``RandomSource``  (ref: raySourceRandom.hpp) — uniform origins on the source
   plane, power-cosine directions (optionally tilted around a primary
@@ -12,7 +12,7 @@ TPU-native ports of the reference sources:
   — emit from arbitrary surface points along their normals with per-point
   relative weights.
 
-Sources are flax.struct pytrees so their arrays flow as jit arguments (no
+Sources are pytree dataclasses so their arrays flow as jit arguments (no
 constant-baking) while axis bookkeeping stays static.
 
 2D note: the reference samples the full 3D lobe and lets ``fillRayDirection<2>``
@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import pytree as struct
 
 from ..ops import sampling, vec
 
@@ -94,7 +94,7 @@ class RandomSource:
             # reference maps (cosTheta, cosPhi sinTheta, sinPhi sinTheta) through
             # ONB rows: d = B0*l0 + B1*l1 + B2*l2
             l = jnp.stack([lobe[:, 2], lobe[:, 0], lobe[:, 1]], axis=-1)
-            return l @ basis
+            return jnp.matmul(l, basis, precision=jax.lax.Precision.HIGHEST)
 
         def accept(d):
             comp = d[:, self.ray_dir]

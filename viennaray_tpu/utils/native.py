@@ -30,7 +30,11 @@ def _source_path() -> str:
 def _cache_dir() -> str:
     d = os.environ.get(
         "VIENNARAY_TPU_NATIVE_DIR",
-        os.path.expanduser("~/.cache/viennaray_tpu_native"),
+        os.path.join(
+            os.path.dirname(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__)))),
+            ".build", "native",
+        ),
     )
     os.makedirs(d, exist_ok=True)
     return d
